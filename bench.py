@@ -1,18 +1,20 @@
 #!/usr/bin/env python
-"""Driver benchmark: flagship Pallas SELL SpMV, validated against the fp64
-host oracle. Prints ONE JSON line:
+"""Benchmark: SELL-C-σ SpMV on one GPU, validated against the fp64 host
+oracle. Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
 Headline workload: a Cube_Coup_dt0-class 3-D FEM matrix (27-point stencil x
 3 dof, 50.8M nnz) — the same matrix class as the reference project's own
-headline result (CUDA warp-per-row CSR on Cube_Coup_dt0: 47.09 fp64 GFLOPS,
-reference result/result_cuda.csv row 3 / BASELINE.md). vs_baseline divides
-by that number. A secondary adversarial metric (random-in-band, the
-gather-hostile regime) is reported in the same JSON.
+headline result (CUDA warp-per-row CSR on Cube_Coup_dt0: 47.09 fp64 GFLOPS
+on a card the reference did not record, reference result/result_cuda.csv
+row 3 / BASELINE.md). vs_baseline divides by that number. The fp64 fields
+come from the native fp64 stage; secondary fields cover a random-in-band
+matrix (the gather-hostile regime) and a road network (short rows).
 
-Environment notes (.claude/skills/verify/SKILL.md): first host->device
-transfer stalls minutes -> tiny warm-up transfer first; compiles cached
-persistently; timing uses the LICM-proof chained timer (utils/timing.py).
+Runs on a GPU only: with no GPU it exits non-zero and prints no result.
+It does the same when any stage it asks for fails or does not validate
+(fp64 stages within the round-off bound, the others at the reference
+tolerances).
 """
 
 import json
@@ -29,100 +31,28 @@ def log(*a):
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:
-        pass
+    from sparsematrixvectormultiplication_tpu.utils.platform import (
+        enable_compile_cache,
+        require_gpu,
+    )
 
-    import jax.numpy as jnp
-    import numpy as np
+    require_gpu("bench.py")
+    jax.config.update("jax_enable_x64", True)
+    enable_compile_cache()
 
     from sparsematrixvectormultiplication_tpu.bench.harness import BenchConfig, run_matrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import banded, fem_3d
+    from sparsematrixvectormultiplication_tpu.models.synthetic import (
+        banded,
+        fem_3d,
+        road_network,
+    )
 
     t_all = time.time()
-    # absorb the one-time transfer warm-up stall before timing anything.
-    # During a worker outage the first transfer sometimes raises UNAVAILABLE
-    # but sometimes BLOCKS indefinitely (observed 10+h outage mid-r3, where
-    # only an external timeout unsticks the probe) — so gate in a SUBPROCESS
-    # with a hard timeout, and emit a well-formed JSON failure line if the
-    # worker never comes back. Only one TPU process runs at a time: the
-    # probe exits before this process touches the device.
-    import subprocess
-
-    def _pipeline_busy():
-        # Only ONE TPU process may run at a time (concurrent ones stall
-        # each other) — if the unattended measurement pipeline is mid-run,
-        # defer rather than collide with it.
-        try:
-            out = subprocess.run(["ps", "-eo", "cmd"], capture_output=True,
-                                 timeout=10).stdout.decode()
-        except Exception:  # noqa: BLE001
-            return False
-        # NOTE: the chain orchestrator (r3_chain.sh) is deliberately NOT a
-        # needle — while it sits in its TPU-recovery gate nothing is
-        # measuring, and deferring then would just burn the deadline. Only
-        # its actual measurement stages hold the device.
-        needles = ("bench.cli", "pr_tpu_probe", "run_r3_ladders",
-                   "sg_tpu", "wlshed_ab_tpu", "pr_smoke",
-                   "bsr_spmm_tpu", "bf16_ab_tpu", "spmm_sell_tpu",
-                   "run_r4_ladders", "pr15_diag", "run_r5_ladders",
-                   "fem127_perbin", "fem127_diag", "pk_smoke")
-        return any(n in line for line in out.splitlines() for n in needles)
-
-    busy_deadline = time.time() + 3 * 3600
-    while _pipeline_busy() and time.time() < busy_deadline:
-        log("measurement pipeline running; deferring bench (one-TPU-process rule)")
-        time.sleep(120)
-
-    warm_deadline = time.time() + 1800
-    probe = ("import numpy as np, jax, jax.numpy as jnp\n"
-             "print(float(np.asarray(jnp.sum(jax.device_put("
-             "np.ones(1024, np.float32))))))\n")
-    while True:
-        t0 = time.time()
-        try:
-            r = subprocess.run([sys.executable, "-c", probe], timeout=600,
-                               capture_output=True)
-            if r.returncode == 0:
-                log(f"transfer warm-up probe: {time.time()-t0:.0f}s")
-                break
-            reason = (r.stderr or b"").decode()[-200:]
-        except subprocess.TimeoutExpired:
-            reason = "probe timeout (worker blocked)"
-        if time.time() > warm_deadline:
-            print(json.dumps({
-                "metric": "pallas_sell_f32_gflops_fem3d_51Mnnz",
-                "value": 0.0, "unit": "GFLOPS", "vs_baseline": 0.0,
-                "error": f"TPU backend unavailable: {reason}",
-            }), flush=True)
-            return
-        log(f"TPU unavailable ({reason}); retrying...")
-        time.sleep(60)
-    # now warm up THIS process's backend (worker is known-reachable)
-    t0 = time.time()
-    float(np.asarray(jnp.sum(jax.device_put(np.ones(1024, np.float32)))))
-    log(f"transfer warm-up: {time.time()-t0:.0f}s")
-
-    # wl index bit-plane packing: adopt only with on-device PROOF — the
-    # PKSMOKE chain stage writes "PK SMOKE OK" after verifying packed
-    # outputs bit-identical to unpacked on the real chip (probes/pk_smoke.py)
-    import os
-    try:
-        with open("/root/repo/probes/pk_smoke_r5.out") as f:
-            if "PK SMOKE OK" in f.read():
-                os.environ.setdefault("SPMV_WL_PACK", "1")
-                log("packed-wl enabled (PKSMOKE proof found)")
-    except OSError:
-        pass
-
     cfg = BenchConfig(
-        iterations=256,
-        rounds=2,
+        iterations=64,
+        rounds=3,
         dtype="float32",
-        kernels=("serial_csr", "pallas_sell", "pallas_sell_bf16",
-                 "pallas_sell_dd"),
+        kernels=("serial_csr", "sell", "sell_bf16", "sell_f64"),
         flush_between_stages=False,
     )
 
@@ -131,50 +61,35 @@ def main():
     coo = fem_3d(60, 60, 60, dof=3, seed=1)
     log(f"fem3d gen: {time.time()-t0:.0f}s nnz={coo.nnz}")
     res = run_matrix("fem3d_cube", coo, cfg, log=log)
-    s = res.stage("pallas_sell")
-    dd = res.stage("pallas_sell_dd")
-    b16 = res.stage("pallas_sell_bf16")
-    assert s is not None, "pallas_sell stage missing"
-    ok = s.diff.significant_diffs == 0 or s.diff.mean_rel_err < 1e-4
+    s, f64, b16 = res.stage("sell"), res.stage("sell_f64"), res.stage("sell_bf16")
 
     # --- secondary: adversarial random-in-band (gather-hostile) ---
     t0 = time.time()
     coo2 = banded(250_000, 60, 2500, seed=1)
     log(f"banded gen: {time.time()-t0:.0f}s nnz={coo2.nnz}")
-    cfg2 = BenchConfig(
-        iterations=256, rounds=2, dtype="float32",
-        kernels=("serial_csr", "pallas_sell", "pallas_sell_dd"),
-        flush_between_stages=False,
-    )
+    cfg2 = BenchConfig(iterations=64, rounds=3, dtype="float32",
+                       kernels=("serial_csr", "sell", "sell_f64"),
+                       flush_between_stages=False)
     res2 = run_matrix("banded_adversarial", coo2, cfg2, log=log)
-    s2 = res2.stage("pallas_sell")
-    dd2 = res2.stage("pallas_sell_dd")
+    s2, f64_2 = res2.stage("sell"), res2.stage("sell_f64")
 
-    # --- tertiary: scattered short-row regime (SG layout; ≙ the reference's
-    # thread-per-row CUDA class, csr_matrix_cuda.cu:122-148 — roadNet-PA row
-    # of result/result_cuda.csv). Auto layout picks SG here. ---
-    s3 = None
-    try:
-        from sparsematrixvectormultiplication_tpu.models.synthetic import road_network
-
-        t0 = time.time()
-        coo3 = road_network(1_200_000, seed=1)
-        log(f"road gen: {time.time()-t0:.0f}s nnz={coo3.nnz}")
-        cfg3 = BenchConfig(
-            iterations=128, rounds=2, dtype="float32",
-            kernels=("serial_csr", "pallas_sell"),
-            # r3 tuning: forced sb-list beats the auto pick on road-class
-            # scatter (7.55 vs 6.29 GF, result_tpu_r3 tuned_ladder
-            # default-sblist) — bench the tuned config
-            sell_layout="sb-list",
-            flush_between_stages=False,
-        )
-        res3 = run_matrix("road_scattered", coo3, cfg3, log=log)
-        s3 = res3.stage("pallas_sell")
-    except Exception as e:  # noqa: BLE001 — tertiary metric must not sink the headline
-        log(f"road stage failed: {type(e).__name__}: {e}")
+    # --- tertiary: scattered short rows (≙ the reference's thread-per-row
+    # CUDA class, roadNet-PA row of result/result_cuda.csv) ---
+    t0 = time.time()
+    coo3 = road_network(1_200_000, seed=1)
+    log(f"road gen: {time.time()-t0:.0f}s nnz={coo3.nnz}")
+    cfg3 = BenchConfig(iterations=128, rounds=3, dtype="float32",
+                       kernels=("serial_csr", "sell"),
+                       flush_between_stages=False)
+    res3 = run_matrix("road_scattered", coo3, cfg3, log=log)
+    s3 = res3.stage("sell")
 
     log(f"total bench time: {time.time()-t_all:.0f}s")
+    # every stage asked for must have run and validated: fp64 stages within
+    # the round-off bound, the others at the reference tolerances
+    problems = res.problems() + res2.problems() + res3.problems()
+    if problems:
+        raise SystemExit("bench.py FAILED: " + "; ".join(problems))
     print(
         json.dumps(
             {
@@ -182,23 +97,22 @@ def main():
                 "value": round(s.gflops, 3),
                 "unit": "GFLOPS",
                 "vs_baseline": round(s.gflops / BASELINE_GFLOPS, 4),
-                "valid": bool(ok),
+                "valid": True,
                 "mean_rel_err": s.diff.mean_rel_err,
                 "nnz": res.nnz,
                 "time_ms": round(s.seconds * 1e3, 3),
-                "fp64_dd_gflops": round(dd.gflops, 3) if dd else None,
-                "fp64_dd_vs_baseline": round(dd.gflops / BASELINE_GFLOPS, 4) if dd else None,
-                "fp64_dd_max_rel_err": dd.diff.max_rel_err if dd else None,
-                # bf16 value planes (precision ladder's fast end; validated
-                # vs the bf16-quantized fp64 oracle) — r4 measured 111.3 GF
-                "bf16_gflops": round(b16.gflops, 3) if b16 else None,
-                "bf16_vs_baseline": round(b16.gflops / BASELINE_GFLOPS, 4) if b16 else None,
-                "adversarial_banded_f32_gflops": round(s2.gflops, 3) if s2 else None,
-                "adversarial_banded_dd_gflops": round(dd2.gflops, 3) if dd2 else None,
+                # native fp64 (the key names predate it)
+                "fp64_dd_gflops": round(f64.gflops, 3),
+                "fp64_dd_vs_baseline": round(f64.gflops / BASELINE_GFLOPS, 4),
+                "fp64_dd_max_rel_err": f64.diff.max_rel_err,
+                "bf16_gflops": round(b16.gflops, 3),
+                "bf16_vs_baseline": round(b16.gflops / BASELINE_GFLOPS, 4),
+                "adversarial_banded_f32_gflops": round(s2.gflops, 3),
+                "adversarial_banded_dd_gflops": round(f64_2.gflops, 3),
                 # scattered short-row regime vs the reference's roadNet-PA
                 # CUDA warp number (2.59 GF, result/result_cuda.csv)
-                "scattered_road_f32_gflops": round(s3.gflops, 3) if s3 else None,
-                "scattered_road_vs_ref_warp": round(s3.gflops / 2.59, 3) if s3 else None,
+                "scattered_road_f32_gflops": round(s3.gflops, 3),
+                "scattered_road_vs_ref_warp": round(s3.gflops / 2.59, 3),
             }
         ),
         flush=True,

@@ -1,14 +1,15 @@
 #!/usr/bin/env python
-"""End-to-end demo: load a .mtx, run every kernel tier, validate, report.
+"""End-to-end demo: load a .mtx, run the SpMV operator in three precisions,
+validate each against the fp64 host oracle, and solve.
 
     python examples/demo.py [path/to/matrix.mtx]
 
 Without an argument, generates a banded FEM-class matrix. Runs on whatever
-backend JAX picks (Pallas kernels interpret on CPU).
+backend JAX picks; timing is printed on a GPU only.
 """
 
-import sys
 import os
+import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -17,18 +18,20 @@ import numpy as np
 
 def main():
     import jax
+
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     import sparsematrixvectormultiplication_tpu as spmv
-    from sparsematrixvectormultiplication_tpu.ops import (
-        device_put_csr,
+    from sparsematrixvectormultiplication_tpu.bench.harness import bf16_rounded
+    from sparsematrixvectormultiplication_tpu.ops.sell import (
         device_put_sell,
-        device_put_sell_dd,
-        sell_spmv_dd_f64,
-        sell_spmv_pallas,
+        sell_spmv,
     )
     from sparsematrixvectormultiplication_tpu.utils.metrics import format_flops
-    from sparsematrixvectormultiplication_tpu.utils.validation import difference_metrics
+    from sparsematrixvectormultiplication_tpu.utils.validation import (
+        difference_metrics,
+    )
 
     if len(sys.argv) > 1:
         coo = spmv.COOMatrix.from_mtx(sys.argv[1])
@@ -42,181 +45,77 @@ def main():
     print(f"matrix: {name} -> {coo.summary()}")
     csr = spmv.CSRMatrix.from_coo(coo)
     sell = spmv.SellMatrix.from_csr(csr)
-    st = sell.memory_stats()
-    print(f"SELL layout: {st['num_bins']} bins {st['bin_ks']} "
-          f"({st['bin_layouts']}), padding {st['padding_ratio']:.2f}x")
+    print(f"SELL-C-sigma: c={sell.c} sigma={sell.sigma} bins "
+          f"{[b.k for b in sell.bins]}, padding {sell.padding_ratio:.2f}x, "
+          f"{sell.seg_owner.size} heavy-row segments")
 
     x = np.ones(coo.ncols)
     y_oracle = csr.spmv(x)  # host fp64 golden reference
-    on_tpu = jax.devices()[0].platform == "tpu"
     print(f"backend: {jax.devices()[0].device_kind}")
 
-    # f32 Pallas kernel
-    d32 = device_put_sell(sell, dtype=jnp.float32)
-    y32 = np.asarray(sell_spmv_pallas(d32, jnp.asarray(x, jnp.float32),
-                                      interpret=not on_tpu))
-    dm = difference_metrics(y_oracle, y32)
-    print(f"pallas f32:   significant_diffs={dm.significant_diffs} "
-          f"max_rel={dm.max_rel_err:.2e}")
+    for dt in (jnp.float32, jnp.bfloat16, jnp.float64):
+        d = device_put_sell(sell, dt)
+        xd = jnp.asarray(x, jnp.float64 if dt == jnp.float64 else jnp.float32)
+        y = np.asarray(sell_spmv(d, xd), np.float64)
+        # bf16 values are checked against the oracle on the rounded values
+        ref = bf16_rounded(csr).spmv(x) if dt == jnp.bfloat16 else y_oracle
+        dm = difference_metrics(ref, y)
+        print(f"{jnp.dtype(dt).name:8s} SpMV: significant_diffs="
+              f"{dm.significant_diffs} max_rel={dm.max_rel_err:.2e}")
 
-    # fp64-class double-double kernel
-    ddd = device_put_sell_dd(sell)
-    ydd = np.asarray(sell_spmv_dd_f64(ddd, jnp.asarray(x, jnp.float64)
-                                      if jax.config.jax_enable_x64 else jnp.asarray(x),
-                                      interpret=not on_tpu))
-    dm = difference_metrics(y_oracle, ydd)
-    print(f"pallas fp64dd: significant_diffs={dm.significant_diffs} "
-          f"max_rel={dm.max_rel_err:.2e}")
+    # the one-call surface: convert, upload, operator
+    op = spmv.auto_device_op(csr, jnp.float32)
+    dm = difference_metrics(y_oracle, op.matvec(x))
+    print(f"auto_device_op: significant_diffs={dm.significant_diffs}")
 
-    # MXU SpMM (multi-RHS) — clustered/banded matrices only; scattered
-    # ones exceed the dense-block byte budget and are routed back here
-    try:
-        from sparsematrixvectormultiplication_tpu.formats.bsr import BSRMatrix
-        from sparsematrixvectormultiplication_tpu.ops import (
-            bsr_spmm_pallas,
-            device_put_bsr,
-            pad_rhs,
-        )
-
-        bsr = BSRMatrix.from_csr(csr, max_bytes=256 << 20)
-        dbsr = device_put_bsr(bsr)
-        X = np.random.default_rng(0).standard_normal(
-            (coo.ncols, 8), dtype=np.float32)
-        Y = np.asarray(bsr_spmm_pallas(dbsr, pad_rhs(X, coo.ncols),
-                                       interpret=not on_tpu))[:, :8]
-        dm = difference_metrics(csr.spmv(X[:, 0].astype(np.float64)), Y[:, 0])
-        print(f"MXU SpMM (B=8, fill {bsr.fill:.3f}): "
-              f"significant_diffs={dm.significant_diffs} "
-              f"max_rel={dm.max_rel_err:.2e}")
-    except (ValueError, MemoryError) as e:
-        print(f"MXU SpMM: skipped ({str(e)[:80]}...)")
-
-    # bf16 value planes: half the HBM value stream, f32 accumulation —
-    # validated against the fp64 SpMV of the bf16-quantized matrix
-    import ml_dtypes
-
-    dbf = device_put_sell(sell, dtype=jnp.bfloat16)
-    ybf = np.asarray(sell_spmv_pallas(dbf, jnp.asarray(x, jnp.float32),
-                                      interpret=not on_tpu))
-    csr_q = spmv.CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
-                           csr.values.astype(ml_dtypes.bfloat16)
-                                     .astype(np.float64))
-    dm = difference_metrics(csr_q.spmv(x), ybf)
-    print(f"pallas bf16:  significant_diffs={dm.significant_diffs} "
-          f"max_rel={dm.max_rel_err:.2e} (vs bf16-quantized oracle)")
-
-    # multi-RHS SELL SpMM: stream A once, serve 8 right-hand sides
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.ops import (
-        device_put_x_multi,
-        sell_spmm_pallas,
-    )
-
-    sell_km = SellMatrix.from_csr(csr, layout="k-major")
-    dkm = device_put_sell(sell_km, dtype=jnp.float32, resident=False)
-    Xmm = np.random.default_rng(1).standard_normal((coo.ncols, 8))
-    Ymm = np.asarray(sell_spmm_pallas(
-        dkm, device_put_x_multi(Xmm, coo.ncols), interpret=not on_tpu))
-    ymm_ref = csr.spmv(Xmm[:, 3])
-    if getattr(sell_km, "row_perm", None) is not None:
-        ymm_ref = ymm_ref[sell_km.row_perm]
-    dm = difference_metrics(ymm_ref, Ymm[:, 3])
-    print(f"SELL SpMM (R=8): significant_diffs={dm.significant_diffs} "
-          f"max_rel={dm.max_rel_err:.2e}")
-
-    # mixed-precision refinement: bf16 inner CG + fp64 residuals -> 1e-11
-    # (self-contained SPD Laplacian — the demo matrix is nonsymmetric)
-    from sparsematrixvectormultiplication_tpu.solvers import (
-        cg,
-        iterative_refinement,
-    )
-
+    # fp64 CG on an SPD 1-D Laplacian through the same operator
     from sparsematrixvectormultiplication_tpu.formats.coo import COOMatrix
+    from sparsematrixvectormultiplication_tpu.solvers import cg_sell
 
-    n_ir = 1024
-    ir_rows = np.repeat(np.arange(n_ir), 3)[1:-1]
-    ir_cols = ir_rows + np.tile([-1, 0, 1], n_ir)[1:-1]
-    ir_keep = (ir_cols >= 0) & (ir_cols < n_ir)
-    ir_csr = spmv.CSRMatrix.from_coo(COOMatrix(
-        n_ir, n_ir, ir_rows[ir_keep].astype(np.int64),
-        ir_cols[ir_keep].astype(np.int64),
-        np.tile([-1.0, 6.0, -1.0], n_ir)[1:-1][ir_keep]))
-    ir_dbf = device_put_sell(
-        SellMatrix.from_csr(ir_csr, layout="k-major"), dtype=jnp.bfloat16)
+    n = 1024
+    rows = np.repeat(np.arange(n), 3)[1:-1]
+    cols = rows + np.tile([-1, 0, 1], n)[1:-1]
+    lap = spmv.CSRMatrix.from_coo(COOMatrix(
+        n, n, rows, cols, np.tile([-1.0, 2.5, -1.0], n)[1:-1]))
+    b = np.ones(n)
+    xs, iters, _ = cg_sell(device_put_sell(spmv.SellMatrix.from_csr(lap),
+                                           jnp.float64),
+                           jnp.asarray(b), tol=1e-12, maxiter=500)
+    res = np.linalg.norm(b - lap.spmv(np.asarray(xs))) / np.linalg.norm(b)
+    print(f"fp64 CG: {int(iters)} iterations, host residual {res:.1e}")
 
-    def ir_inner(r):
-        xx, _, _ = cg(lambda v: sell_spmv_pallas(
-            ir_dbf, v, interpret=not on_tpu)[:n_ir],
-            jnp.asarray(r, jnp.float32), tol=1e-2, maxiter=60)
-        return xx
-
-    xr, sweeps, resnorms = iterative_refinement(
-        ir_inner, ir_csr.spmv, np.ones(n_ir), tol=1e-11, max_sweeps=8)
-    print(f"refinement (bf16 inner CG): {sweeps} sweeps, "
-          f"rel residual {resnorms[-1]:.1e}")
-
-    # Chebyshev-preconditioned CG on the same SPD Laplacian — polynomial
-    # preconditioning is the TPU answer to ILU/SSOR (m extra SpMVs, no
-    # sequential triangular recurrences)
+    # PageRank on |A| through the XLA CSR matvec
     from sparsematrixvectormultiplication_tpu.ops.xla import (
-        csr_spmv as _xla_spmv,
-        device_put_csr as _put_csr,
+        csr_spmv,
+        device_put_csr,
     )
-    from sparsematrixvectormultiplication_tpu.solvers import (
-        chebyshev_preconditioner,
-        gershgorin_bounds,
-    )
-
-    ir_dc = _put_csr(ir_csr, dtype=jnp.float32)
-
-    def ir_mv(v):
-        return _xla_spmv(ir_dc.values, ir_dc.col_idx, ir_dc.row_ids, v,
-                         nrows=ir_dc.nrows)
-
-    lmin, lmax = gershgorin_bounds(ir_csr)
-    b_ir = jnp.ones(n_ir, jnp.float32)
-    _, it_c, _ = cg(ir_mv, b_ir, tol=1e-5, maxiter=500,
-                    prec=chebyshev_preconditioner(ir_mv, lmin, lmax, degree=4))
-    _, it_p, _ = cg(ir_mv, b_ir, tol=1e-5, maxiter=500)
-    print(f"Chebyshev(4) PCG: {int(it_c)} iters vs plain CG {int(it_p)}")
-
-    # PageRank on |A| through the XLA matvec — the solvers layer
-    from sparsematrixvectormultiplication_tpu.formats.coo import COOMatrix
-    from sparsematrixvectormultiplication_tpu.ops.xla import csr_spmv
     from sparsematrixvectormultiplication_tpu.solvers import (
         pagerank,
         pagerank_operator,
     )
 
-    absco = COOMatrix(coo.nrows, coo.ncols, coo.row, coo.col, np.abs(coo.val))
     if coo.nrows == coo.ncols:
+        absco = COOMatrix(coo.nrows, coo.ncols, coo.row, coo.col,
+                          np.abs(coo.val))
         t, dangling = pagerank_operator(spmv.CSRMatrix.from_coo(absco))
         dt_pr = device_put_csr(t)
         p, iters, delta = pagerank(
             lambda u: csr_spmv(dt_pr.values, dt_pr.col_idx, dt_pr.row_ids,
                                u, nrows=dt_pr.nrows),
             jnp.asarray(dangling), tol=1e-10, maxiter=200)
-        print(f"PageRank: {int(iters)} iterations, L1 delta {float(delta):.2e}, "
-              f"sum={float(np.asarray(p).sum()):.6f}")
+        print(f"PageRank: {int(iters)} iterations, L1 delta "
+              f"{float(delta):.2e}, sum={float(np.asarray(p).sum()):.6f}")
 
-    # ---- automatic format selection (ops/auto.py) ----
-    kind, astats = spmv.choose_format(csr)
-    print(f"auto format: {kind} ({astats.get('reason')})")
-    op = spmv.auto_device_op(csr)
-    y_auto = op.matvec(x)
-    rel = np.abs(y_auto - y_oracle) / np.maximum(1.0, np.abs(y_oracle))
-    print(f"auto matvec ({op.kind}): max rel vs oracle {rel.max():.2e}")
-
-    if on_tpu:
+    if jax.devices()[0].platform == "gpu":
         from sparsematrixvectormultiplication_tpu.utils.timing import (
             time_device_fn_batched,
         )
 
-        sec, _ = time_device_fn_batched(
-            lambda xx: sell_spmv_pallas(d32, xx), jnp.asarray(x, jnp.float32),
-            reps=10, rounds=2,
-        )
-        print(f"pallas f32 time: {sec*1e3:.3f} ms = "
+        d32 = device_put_sell(sell, jnp.float32)
+        sec, _ = time_device_fn_batched(sell_spmv, d32,
+                                        jnp.asarray(x, jnp.float32),
+                                        reps=20, rounds=3)
+        print(f"f32 SpMV time: {sec*1e3:.3f} ms = "
               f"{format_flops(2 * coo.nnz / sec)}")
 
 

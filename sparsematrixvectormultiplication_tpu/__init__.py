@@ -1,19 +1,18 @@
-"""sparsematrixvectormultiplication_tpu — TPU-native SpMV framework.
+"""SpMV framework for NVIDIA GPUs, in JAX.
 
-A ground-up JAX/Pallas re-design of the capabilities of the C/OpenMP/CUDA
-reference ``MarcoLor01/SparseMatrixVectorMultiplication``: MatrixMarket IO,
-CSR / HLL (hacked-ELLPACK) / SELL-C-128 layouts, XLA oracle kernels plus
-Pallas TPU kernels, nnz-balanced scheduling, multi-chip sharding, and a
-validating GFLOPS/bandwidth benchmark harness. See SURVEY.md for the layer
-map and docs/DESIGN.md for the TPU kernel design rationale.
+A re-design of the capabilities of the C/OpenMP/CUDA reference
+``MarcoLor01/SparseMatrixVectorMultiplication``: MatrixMarket IO, CSR / HLL
+(hacked-ELLPACK) / SELL-C-σ layouts, XLA device operators in f32, bf16
+values and native fp64, nnz-balanced scheduling, multi-device
+sharding, iterative solvers, and a validating GFLOPS benchmark harness.
+See SURVEY.md for the layer map and docs/DESIGN.md for the GPU design.
 """
 
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
 from .formats.hll import DEFAULT_HACK_SIZE, HLLMatrix
 from .formats.sell import SellMatrix
-from .formats.split import SplitMatrix
-from .ops.auto import auto_device_op, choose_format
+from .ops.auto import auto_device_op
 from .io.mmio import (
     MMIOError,
     MMTypeCode,
@@ -29,9 +28,7 @@ __all__ = [
     "CSRMatrix",
     "HLLMatrix",
     "SellMatrix",
-    "SplitMatrix",
     "auto_device_op",
-    "choose_format",
     "DEFAULT_HACK_SIZE",
     "MMIOError",
     "MMTypeCode",

@@ -12,7 +12,7 @@ mapping, so downstream tooling written for the reference's CSVs keeps
 working. All writers append, emitting the header only when the file is new or
 empty (≙ utility.c:102-121) — which, unlike the reference (whose startup
 wipes result/, utility.c:200-216, defeating resume), makes interrupted sweeps
-resumable; see also checkpoint support in bench/sweep.py.
+resumable; see also the checkpoint support in bench/cli.py.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import csv
 import os
 
 from .harness import MatrixResult
+from .peaks import peak_memory_bandwidth
 
 __all__ = [
     "write_native_row",
@@ -36,7 +37,7 @@ def _append_row(path: str, header: list, row: list):
     if not new:
         # Fail loudly on schema drift: appending rows of a newer schema
         # under an older header silently misaligns every column after the
-        # divergence point (ADVICE r4).
+        # divergence point.
         with open(path, newline="") as f:
             existing = next(csv.reader(f), None)
         if existing is not None and existing != [str(h) for h in header]:
@@ -61,47 +62,37 @@ NATIVE_HEADER = [
     "arith_class",
     "time_s", "gflops", "speedup_vs_serial",
     "mean_rel_err", "significant_diffs", "max_abs_err", "max_rel_err",
-    "padding_ratio", "bytes_streamed_per_nnz", "pct_stream_bw",
+    "padding_ratio", "bytes_streamed_per_nnz", "pct_peak_bw",
 ]
-
-# Measured two-stream HBM bandwidth class on this TPU (docs/DESIGN.md
-# "Pallas/Mosaic": ~230-310 GB/s two-stream, wl tiles ~430; the STREAM-class
-# ceiling the BASELINE.json north-star is stated against is ~800 GB/s).
-STREAM_BW_BYTES = 800e9
 
 
 def _stage_dtype_and_class(stage: str, cfg_dtype: str):
-    """Honest dtype/arith labels per stage (VERDICT r3 weak-6): the dd
-    compensated-arithmetic stages store float32 planes but deliver
-    fp64-class results — label them ``float64-dd`` so the CSV alone
-    supports comparisons against the reference's fp64 columns."""
-    if stage.startswith("serial"):
+    """dtype/arith labels per stage: the host oracles and ``sell_f64`` are
+    fp64, the reference's precision; ``*_bf16`` stages store bf16 values."""
+    if stage.startswith("serial") or stage.endswith("_f64"):
         return "float64", "fp64"
-    if stage.endswith("_dd") or "_dd_" in stage:
-        return "float64-dd", "fp64-class"
-    if "bf16" in stage:
+    if stage.endswith("_bf16"):
         return "bfloat16", "bf16"
     return cfg_dtype, {"float32": "fp32", "float64": "fp64",
                        "bfloat16": "bf16"}.get(cfg_dtype, cfg_dtype)
 
 
 def write_native_row(path: str, result: MatrixResult):
-    """One row per (matrix, stage) — the framework's primary schema."""
-    default_pad = result.format_stats.get("sell", {}).get("padding_ratio", 1.0)
+    """One row per (matrix, stage) — the framework's primary schema.
+
+    ``bytes_streamed_per_nnz`` counts the device buffers a stage reads
+    (matrix arrays and x); ``pct_peak_bw`` sets those bytes per second
+    against the device's published memory bandwidth, and is left empty for
+    host stages and for runs not on a GPU."""
+    on_gpu = result.device.get("platform") == "gpu"
+    peak = peak_memory_bandwidth(result.device["kind"]) if on_gpu else None
     for stage, s in result.stages.items():
-        pad = s.extra.get("padding_ratio", default_pad)
-        # streamed-bytes estimate: ja plane (4B, or 1B when the wl packed
-        # index plane is active — SPMV_WL_PACK=1, ops/pallas_sell.py) +
-        # value plane (2B bf16 / 4B f32 / 8B dd hi+lo)
-        ja_b = 1.0 if os.environ.get("SPMV_WL_PACK") == "1" else 4.0
-        dd = stage.endswith("_dd") or "_dd_" in stage
-        per_nnz = (12.0 if "csr" in stage
-                   else (ja_b + 2.0) * pad if "bf16" in stage
-                   else (ja_b + 8.0) * pad if dd
-                   else (ja_b + 4.0) * pad)
+        pad = s.extra.get("padding_ratio", 1.0)
+        dev_bytes = s.extra.get("device_bytes")
+        per_nnz = f"{dev_bytes / max(result.nnz, 1):.2f}" if dev_bytes else ""
+        pct = (f"{dev_bytes / max(s.seconds, 1e-12) / peak * 100.0:.2f}"
+               if dev_bytes and peak else "")
         dtype, arith = _stage_dtype_and_class(stage, result.config.dtype)
-        pct_bw = (per_nnz * result.nnz / max(s.seconds, 1e-12)
-                  / STREAM_BW_BYTES * 100.0)
         _append_row(
             path,
             NATIVE_HEADER,
@@ -112,7 +103,7 @@ def write_native_row(path: str, result: MatrixResult):
                 f"{result.speedup(stage):.6f}",
                 f"{s.diff.mean_rel_err:.15e}", s.diff.significant_diffs,
                 f"{s.diff.max_abs_err:.15e}", f"{s.diff.max_rel_err:.15e}",
-                f"{pad:.6f}", f"{per_nnz:.2f}", f"{pct_bw:.2f}",
+                f"{pad:.6f}", per_nnz, pct,
             ],
         )
 
@@ -134,16 +125,15 @@ OPENMP_HEADER = (
 # Stage mapping onto the reference's column roles (each column a DISTINCT
 # stage — a duplicate mapping would let downstream tooling compare a kernel
 # against itself):
-#   time_parallel          <- pallas_sell (the parallel CSR-class kernel)
-#   time_parallel_simd     <- xla_csr     (the vectorized CSR kernel)
-#   time_parallel_hll      <- xla_ell     (the parallel HLL kernel)
-#   time_parallel_hll_simd <- pallas_hll  (Pallas kernel on the HLL work
-#                                          profile, ops/pallas_hll.py)
+#   time_parallel          <- sell     (the SELL-C-σ operator)
+#   time_parallel_simd     <- xla_csr  (the vectorized CSR kernel)
+#   time_parallel_hll      <- xla_ell  (the parallel HLL kernel)
+#   time_parallel_hll_simd <- none     (zeros: no second HLL device stage)
 _OPENMP_MAP = {
-    "parallel": "pallas_sell",
+    "parallel": "sell",
     "parallel_simd": "xla_csr",
     "parallel_hll": "xla_ell",
-    "parallel_hll_simd": "pallas_hll",
+    "parallel_hll_simd": None,
 }
 
 
@@ -202,25 +192,23 @@ CUDA_HEADER = (
 ).split(",")
 
 # Stage mapping onto the reference's CUDA kernel roles (all fp64 there).
-# Six DISTINCT stages for six distinct reference kernels
+# DISTINCT stages for distinct reference kernels
 # (cuda_src/utility.cu:115-123) — a duplicate mapping would emit
 # byte-identical columns and let downstream tooling compare a kernel
 # against itself:
-#   row_csr         <- pallas_pr | xla_csr (thread-per-row analogue: the PR
-#                      permutation-routed kernel when measured, else the
-#                      XLA segment-sum)
-#   warp_csr        <- pallas_sell       (lane-per-row analogue, f32)
-#   warp_shared_csr <- pallas_sell_sigma (row-sorted SELL-C-sigma variant)
-#   row_hll         <- xla_ell           (padded-HLL device kernel)
-#   warp_hll        <- pallas_sell_dd | pallas_pr_dd (fp64-class double-double)
-#   warp_shared_hll <- pallas_hll        (Pallas kernel on the HLL work profile)
+#   row_csr         <- xla_csr   (the XLA segment-sum CSR kernel)
+#   warp_csr        <- sell      (SELL-C-σ at the run's dtype)
+#   warp_shared_csr <- sell_f64  (SELL-C-σ in fp64, the reference's precision)
+#   row_hll         <- xla_ell   (padded-HLL device kernel)
+#   warp_hll        <- sell_bf16 (SELL-C-σ with bf16 values)
+#   warp_shared_hll <- none      (zeros)
 _CUDA_MAP = {
-    "row_csr": ("pallas_pr", "xla_csr"),
-    "warp_csr": ("pallas_sell",),
-    "warp_shared_csr": ("pallas_sell_sigma",),
+    "row_csr": ("xla_csr",),
+    "warp_csr": ("sell",),
+    "warp_shared_csr": ("sell_f64",),
     "row_hll": ("xla_ell",),
-    "warp_hll": ("pallas_sell_dd", "pallas_pr_dd"),
-    "warp_shared_hll": ("pallas_hll",),
+    "warp_hll": ("sell_bf16",),
+    "warp_shared_hll": (),
 }
 
 
@@ -291,29 +279,23 @@ def write_memory_stats_row(path: str, matrix_name: str, fmt: str, stats: dict):
 
 
 TILE_HEADER = [
-    "matrix_name", "nonzeros", "kernel", "bin_k", "layout", "n_groups",
-    "span", "s_max", "chunk_k", "bin_padding_ratio", "padding_ratio",
-    "tuned_ladder", "tuned_hack_size",
+    "matrix_name", "nonzeros", "slice_rows", "sigma", "bin_k", "n_slices",
+    "bin_padding_ratio", "padding_ratio",
 ]
 
 
 def write_tile_config_row(path: str, result: MatrixResult):
-    """Chosen tile/bin shapes per kernel (≙ write_block_result_to_csv,
-    cuda_src/utility.cu:236-261: the reference logs chosen CUDA block dims;
-    we log every SELL bin's chosen geometry plus the autotuner's picks)."""
-    tune = result.format_stats.get("tune", {})
-    ladder = tune.get("ladder", "")
-    hack = tune.get("hack_size", "")
-    for fmt, kernel in (("sell", "pallas_sell"), ("sell_sigma", "pallas_sell_sigma")):
-        sell = result.format_stats.get(fmt)
-        if not sell:
-            continue
-        for b in sell.get("bins", []):
-            _append_row(
-                path,
-                TILE_HEADER,
-                [result.name, result.nnz, kernel, b["k"], b["layout"],
-                 b["n_groups"], b["span"], b["s_max"], b["chunk_k"],
-                 f"{b['padding_ratio']:.6f}",
-                 f"{sell.get('padding_ratio', 1.0):.6f}", ladder, hack],
-            )
+    """Chosen SELL slice geometry per bin (≙ write_block_result_to_csv,
+    cuda_src/utility.cu:236-261, where the reference logs its CUDA block
+    dims): slice height, sort window, and each bin's width and size."""
+    sell = result.format_stats.get("sell")
+    if not sell:
+        return
+    for b in sell["bins"]:
+        _append_row(
+            path,
+            TILE_HEADER,
+            [result.name, result.nnz, sell["slice_rows"], sell["sigma"],
+             b["k"], b["n_slices"], f"{b['padding_ratio']:.6f}",
+             f"{sell['padding_ratio']:.6f}"],
+        )

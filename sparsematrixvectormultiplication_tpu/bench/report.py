@@ -1,7 +1,7 @@
 """Render sweep CSVs into a RESULTS-style markdown table.
 
 Usage:
-    python -m sparsematrixvectormultiplication_tpu.bench.report result_tpu_r2
+    python -m sparsematrixvectormultiplication_tpu.bench.report result
 """
 
 from __future__ import annotations
@@ -34,26 +34,18 @@ def fmt_gf(row):
 
 def _iter_native_rows(dirs):
     for d in dirs:
-        for fname in ("spmv_results.csv", "spmv_scale_ladders.csv"):
-            path = os.path.join(d, fname)
-            if not os.path.exists(path):
-                continue
+        path = os.path.join(d, "spmv_results.csv")
+        if os.path.exists(path):
             with open(path) as f:
                 for r in csv.DictReader(f):
                     if r.get("matrix_name"):
                         yield r
 
 
-# Measured STREAM-class ceiling the north star is stated against
-# (BASELINE.json; csv_report.STREAM_BW_BYTES).
-_STREAM_BW = 800e9
-
-
 def best_table(dirs, out=None):
-    """Consolidated best-per-matrix table across result dirs (VERDICT r4
-    item 10): best f32 / bf16 / fp64-class (dd) stage per matrix with
-    %STREAM, merged from every native-schema CSV found — generated, never
-    hand-edited."""
+    """Consolidated best-per-matrix table across result dirs: the best
+    validated f32 / bf16 / fp64 device stage per matrix with its share of
+    the device's peak memory bandwidth — generated, never hand-edited."""
     best = defaultdict(dict)  # matrix -> class -> (gf, stage, row)
     meta = {}
     for r in _iter_native_rows(dirs):
@@ -68,44 +60,28 @@ def best_table(dirs, out=None):
             continue
         if sig != 0 or gf <= 0:
             continue  # only validated rows may claim "best"
-        cls = ("dd" if ("dd" in stage or "float64-dd" in r.get("dtype", ""))
-               else "bf16" if ("bf16" in stage or "bfloat16" in r.get("dtype", ""))
-               else "f32")
+        cls = {"float64": "f64", "bfloat16": "bf16"}.get(r.get("dtype"), "f32")
         meta[m] = int(r["nonzeros"])
         if gf > best[m].get(cls, (0, "", None))[0]:
             best[m][cls] = (gf, stage, r)
 
-    def pct_stream(entry, nnz):
-        if entry is None:
-            return ""
-        gf, _stage, r = entry
-        p = r.get("pct_stream_bw")
-        if p:
-            return f"{float(p):.0f}%"
-        try:
-            per_nnz = float(r.get("bytes_streamed_per_nnz") or 0)
-            sec = float(r["time_s"])
-        except (TypeError, ValueError):
-            return ""
-        if per_nnz <= 0 or sec <= 0:
-            return ""
-        return f"{per_nnz * nnz / sec / _STREAM_BW * 100:.0f}%"
+    def pct(entry):
+        p = entry[2].get("pct_peak_bw") if entry else None
+        return f"{float(p):.0f}%" if p else ""
+
+    def cell(e):
+        return f"{e[0]:.2f} ({e[1]})" if e else "—"
 
     lines = [
-        "| Matrix | nnz | best f32 (stage) | %STREAM | best bf16 | "
-        "best fp64-class (stage) | %STREAM |",
+        "| Matrix | nnz | best f32 (stage) | % peak BW | best bf16 | "
+        "best f64 (stage) | % peak BW |",
         "|---|---|---|---|---|---|---|",
     ]
     for m in sorted(best, key=lambda m: -meta[m]):
-        nnz = meta[m]
-        f32 = best[m].get("f32")
-        bf = best[m].get("bf16")
-        dd = best[m].get("dd")
-        cell = lambda e: f"{e[0]:.2f} ({e[1]})" if e else "—"
+        f32, bf, f64 = (best[m].get(k) for k in ("f32", "bf16", "f64"))
         lines.append(
-            f"| {m} | {nnz/1e6:.1f}M | {cell(f32)} | {pct_stream(f32, nnz)} "
-            f"| {f'{bf[0]:.2f}' if bf else '—'} | {cell(dd)} | "
-            f"{pct_stream(dd, nnz)} |")
+            f"| {m} | {meta[m]/1e6:.1f}M | {cell(f32)} | {pct(f32)} "
+            f"| {f'{bf[0]:.2f}' if bf else '—'} | {cell(f64)} | {pct(f64)} |")
     text = "\n".join(lines)
     if out:
         with open(out, "w") as f:
@@ -121,8 +97,8 @@ def main(argv=None):
     out_dir = args[0] if args else "result"
     native = os.path.join(out_dir, "spmv_results.csv")
     rows, meta = load_native(native)
-    stages = ["serial_csr", "serial_hll", "xla_csr", "xla_ell", "pallas_hll",
-              "pallas_sell", "pallas_sell_sigma", "pallas_sell_dd"]
+    stages = ["serial_csr", "serial_hll", "xla_csr", "xla_ell",
+              "cusparse_csr", "sell", "sell_bf16", "sell_f64"]
     present = [s for s in stages
                if any(s in st for st in rows.values())]
     hdr = "| Matrix | nnz | " + " | ".join(present) + " |"
@@ -134,7 +110,8 @@ def main(argv=None):
         cells = " | ".join(fmt_gf(rows[m].get(s)) for s in present)
         print(f"| {m} | {nnz/1e6:.1f}M | {cells} |")
     print("\nGFLOPS = 2·nnz/t; ✗N marks N significant validation diffs "
-          "(tolerances abs 1e-5 / rel 1e-4, ≙ reference main.c:145).")
+          "(tolerances abs 1e-5 / rel 1e-4, ≙ reference main.c:145; fp64 "
+          "stages within the round-off bound 2·k·eps·|A||x|).")
 
 
 if __name__ == "__main__":

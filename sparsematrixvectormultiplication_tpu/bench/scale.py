@@ -1,67 +1,62 @@
-"""Scaling-axis sweeps — the reference's thread-count dimension, TPU-native.
+"""Device-count scaling sweep — the reference's thread-count axis on devices.
 
 The reference sweeps OpenMP thread counts {2,4,8,16,32,40} per matrix and
 reports speedup/efficiency columns (main.c:18,172-459; 33-column CSV
-src/utility.c:114-120). A TPU chip has no thread-count axis; the analogous
-scaling axes here are:
+src/utility.c:114-120). The analogous axis here is the device count: the
+row-sharded SELL operator (parallel/spmd_sell.py, path ``"sell"``) or the
+row-sharded padded ELL kernel (parallel/sharding.py, path ``"hll"``) over
+meshes of 1..N devices, with speedup and efficiency against one device.
 
-* **device count** — the SPMD Pallas kernel (parallel/spmd_pallas.py) over
-  meshes of 1..N devices; speedup/efficiency vs the 1-device time. Run on
-  real multi-chip hardware when available, or the virtual CPU mesh
-  (tests / committed CSVs).
-* **K-bin ladder** — the launch-configuration axis (finer bins = less
-  padding, more kernel launches); one row per ladder on the real chip.
+A sweep is a measurement, so it refuses to run anywhere but on GPUs unless
+the caller allows CPU devices (the CLI's ``--force-cpu-devices``, tests).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..formats.csr import CSRMatrix
 from ..utils.metrics import calculate_flops
-from ..utils.timing import time_device_fn_slope
+from ..utils.platform import require_gpu
+from ..utils.timing import time_device_fn_batched
 from ..utils.validation import (
     DEFAULT_ABS_TOL,
     DEFAULT_REL_TOL,
     difference_metrics,
-    sampled_spmm_metrics,
 )
 from .csv_report import OPENMP_HEADER, _append_row, _fmt
 
-__all__ = ["run_device_scale_sweep", "run_spmm_device_scale_sweep",
-           "run_path_scale_sweep", "run_ladder_sweep"]
+__all__ = ["run_path_scale_sweep"]
 
 
 def run_path_scale_sweep(
     name: str,
     csr: CSRMatrix,
     out_csv: str,
-    path: str,
+    path: str = "sell",
     *,
     device_counts=None,
     dtype=None,
     iterations: int = 16,
     rounds: int = 2,
     x: np.ndarray | None = None,
+    allow_cpu: bool = False,
     log=print,
 ):
-    """Device-scale curve for one shard path: ``"sell"`` (SPMD Pallas
-    SELL), ``"hll"`` (row-sharded ELL, XLA kernel — fills the reference
-    CSV's hll column family), ``"pr"`` (Beneš-routed scattered kernel) or
-    ``"split"`` (locality-split composite). One openmp-schema row per
-    device count, labeled ``name[path]`` (VERDICT r3 item 7: the r3 CSVs
-    cover the SELL path only)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
+    """Device-scale curve for one shard path, ``"sell"`` or ``"hll"``: one
+    openmp-schema row per device count, labeled ``name[path]``."""
     from ..parallel.sharding import make_mesh
 
+    if not allow_cpu:
+        require_gpu("device-scale sweep")
     dtype = dtype or jnp.float32
     ndev = len(jax.devices())
-    on_tpu = jax.devices()[0].platform == "tpu"
     counts = device_counts or [n for n in (1, 2, 4, 8, 16, 32) if n <= ndev]
     if x is None:
         x = np.ones(csr.ncols, dtype=np.float64)
@@ -70,93 +65,36 @@ def run_path_scale_sweep(
 
     for n in counts:
         mesh = make_mesh(n)
+        xd = jax.device_put(jnp.asarray(x, dtype), NamedSharding(mesh, P()))
         t0 = time.perf_counter()
         if path == "sell":
-            from ..parallel.spmd_pallas import _spmd_run, build_spmd_sell
+            from ..parallel.spmd_sell import (build_spmd_sell, sell_spmv_spmd,
+                                              spmd_run)
             spmd = build_spmd_sell(csr, n, mesh=mesh, dtype=dtype)
-            xd = jax.device_put(jnp.asarray(x, dtype),
-                                NamedSharding(mesh, P()))
-            fn = lambda st, xx: _spmd_run(st, xx, mesh=mesh, axis=spmd.axis,
-                                          interpret=not on_tpu)
+            fn = functools.partial(spmd_run, mesh=mesh, axis=spmd.axis)
             timed_args = (spmd.stacked, xd)
-            # one verification call in natural row order
-            from ..parallel.spmd_pallas import sell_spmv_spmd
-            y = np.asarray(sell_spmv_spmd(spmd, jnp.asarray(x, dtype), mesh,
-                                          interpret=not on_tpu), np.float64)
+            y = sell_spmv_spmd(spmd, x, mesh)
         elif path == "hll":
             from ..formats.hll import HLLMatrix
             from ..parallel.sharding import shard_ell_rows
-            import functools
-            hll = HLLMatrix.from_csr(csr)
-            sharded = shard_ell_rows(hll, mesh, dtype=dtype)
-            x_sh = jax.device_put(jnp.asarray(x, dtype),
-                                  NamedSharding(mesh, P()))
+
+            sharded = shard_ell_rows(HLLMatrix.from_csr(csr), mesh, dtype=dtype)
 
             @functools.partial(
                 jax.jit, out_shardings=NamedSharding(mesh, P("rows")))
-            def _hll_run(ja, as_, xv):
+            def fn(ja, as_, xv):
                 return jnp.sum(as_ * jnp.take(xv, ja), axis=1)
 
-            fn = _hll_run
-            timed_args = (sharded.ja, sharded.as_, x_sh)
-            y = np.asarray(_hll_run(*timed_args), np.float64)[: csr.nrows]
-        elif path == "pr":
-            from ..parallel.spmd_pr import (_spmd_run, build_spmd_pr,
-                                            pr_spmv_spmd)
-            from ..ops.pallas_sell import slab_table_rows
-            from ..formats.sell import LANES
-            spmd = build_spmd_pr(csr, n, mesh=mesh, dtype=dtype)
-            Rp = slab_table_rows(csr.ncols)
-            xp = np.zeros(Rp * LANES, np.dtype(dtype))
-            xp[: csr.ncols] = x[: csr.ncols]
-            Xr = jax.device_put(xp.reshape(Rp, LANES),
-                                NamedSharding(mesh, P()))
-            fn = lambda st, xx: _spmd_run(st, xx, mesh=mesh, axis=spmd.axis,
-                                          pps=spmd.pps,
-                                          interpret=not on_tpu)
-            timed_args = (spmd.stacked, Xr)
-            y = pr_spmv_spmd(spmd, x, mesh, interpret=not on_tpu).astype(
-                np.float64)
-        elif path == "sell_cols":
-            # TP-style column sharding + psum epilogue (VERDICT r4 item 8)
-            from ..parallel.spmd_colsell import (_spmd_run_cols,
-                                                 build_spmd_sell_cols,
-                                                 pack_x_cols,
-                                                 sell_spmv_spmd_cols)
-            mesh = make_mesh(n, ("cols",))
-            spmd = build_spmd_sell_cols(csr, n, mesh=mesh, dtype=dtype)
-            x_tabs = pack_x_cols(spmd, x, mesh, dtype=dtype)
-            fn = lambda st, xx: _spmd_run_cols(st, xx, mesh=mesh,
-                                               axis=spmd.axis,
-                                               interpret=not on_tpu)
-            timed_args = (spmd.stacked, x_tabs)
-            y = sell_spmv_spmd_cols(spmd, x, mesh,
-                                    interpret=not on_tpu).astype(np.float64)
-        elif path == "split":
-            from ..parallel.spmd_split import (_spmd_run_split,
-                                               build_spmd_split,
-                                               split_spmv_spmd)
-            from ..ops.pallas_sell import slab_table_rows
-            from ..formats.sell import LANES
-            spmd = build_spmd_split(csr, n, dtype=dtype, mesh=mesh)
-            Rp = slab_table_rows(csr.ncols)
-            xp = np.zeros(Rp * LANES, np.dtype(dtype))
-            xp[: csr.ncols] = x[: csr.ncols]
-            Xr = jax.device_put(xp.reshape(Rp, LANES),
-                                NamedSharding(mesh, P()))
-            fn = lambda ns, fs, xx: _spmd_run_split(
-                ns, fs, xx, mesh=mesh, axis=spmd.axis, interpret=not on_tpu)
-            timed_args = (spmd.near.stacked, spmd.far, Xr)
-            y = split_spmv_spmd(spmd, x, mesh, interpret=not on_tpu).astype(
-                np.float64)
+            timed_args = (sharded.ja, sharded.as_, xd)
+            y = np.asarray(fn(*timed_args))[: csr.nrows]
         else:
             raise ValueError(f"unknown path {path!r}")
         conv_s = time.perf_counter() - t0
 
-        dm = difference_metrics(y_ref, y[: csr.nrows],
+        dm = difference_metrics(y_ref, np.asarray(y, np.float64)[: csr.nrows],
                                 DEFAULT_ABS_TOL, DEFAULT_REL_TOL)
-        sec, _ = time_device_fn_slope(fn, *timed_args, reps=iterations,
-                                      rounds=rounds)
+        sec, _ = time_device_fn_batched(fn, *timed_args, reps=iterations,
+                                        rounds=rounds)
         gf = calculate_flops(csr.nnz, sec) / 1e9
         log(f"[{name}] spmd_{path} x{n} dev: {sec*1e3:.3f} ms = "
             f"{gf:.3f} GFLOPS, sig_diffs={dm.significant_diffs} "
@@ -168,71 +106,13 @@ def run_path_scale_sweep(
     return results
 
 
-def run_device_scale_sweep(
-    name: str,
-    csr: CSRMatrix,
-    out_csv: str,
-    *,
-    device_counts=None,
-    dtype=None,
-    iterations: int = 16,
-    rounds: int = 2,
-    x: np.ndarray | None = None,
-    log=print,
-):
-    """Time the SPMD Pallas SpMV at 1..N devices; write one openmp-schema row
-    per device count (num_threads column = device count — the documented
-    column mapping for the device axis)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from ..parallel.sharding import make_mesh
-    from ..parallel.spmd_pallas import _spmd_run, build_spmd_sell, sell_spmv_spmd
-
-    dtype = dtype or jnp.float32
-    ndev = len(jax.devices())
-    on_tpu = jax.devices()[0].platform == "tpu"
-    counts = device_counts or [n for n in (1, 2, 4, 8, 16, 32) if n <= ndev]
-    if x is None:
-        x = np.ones(csr.ncols, dtype=np.float64)
-    y_ref = csr.spmv(x)
-
-    results = []
-    for n in counts:
-        mesh = make_mesh(n)
-        t0 = time.perf_counter()
-        spmd = build_spmd_sell(csr, n, mesh=mesh, dtype=dtype)
-        conv_s = time.perf_counter() - t0
-        xd = jnp.asarray(x, dtype)
-        y = sell_spmv_spmd(spmd, xd, mesh, interpret=not on_tpu)
-        dm = difference_metrics(y_ref, np.asarray(y, np.float64),
-                                DEFAULT_ABS_TOL, DEFAULT_REL_TOL)
-        xr = jax.device_put(xd, NamedSharding(mesh, P()))
-        sec, _ = time_device_fn_slope(
-            lambda st, xx: _spmd_run(st, xx, mesh=mesh, axis=spmd.axis,
-                                     interpret=not on_tpu),
-            spmd.stacked, xr, reps=iterations, rounds=rounds,
-        )
-        gf = calculate_flops(csr.nnz, sec) / 1e9
-        log(f"[{name}] spmd_pallas x{n} dev: {sec*1e3:.3f} ms = {gf:.3f} GFLOPS, "
-            f"sig_diffs={dm.significant_diffs} (convert {conv_s:.1f}s)")
-        results.append((n, sec, gf, dm))
-
-    _write_scale_rows(out_csv, name, csr, results, csr.nnz)
-    return results
-
-
 def _write_scale_rows(out_csv, label, csr, results, work, role="parallel"):
     """openmp-schema rows for a device-scale curve (num_threads = device
-    count; ``work`` = flops numerator/2, nnz for SpMV or nnz*B for SpMM).
-    Shared by all device sweeps so the 33-column mapping lives once.
+    count; ``work`` = nnz, the flops numerator / 2).
 
     ``role`` picks the reference column family the curve fills:
     ``"parallel"`` (the CSR-kernel columns) or ``"hll"`` (time_parallel_hll
-    / flops_parallel_hll / speedup_hll / efficiency_hll — zero in the r3
-    CSVs, VERDICT r3 weak-5). Paths with no reference analogue (pr, split)
-    use the parallel columns under a ``[path]``-suffixed label."""
+    / flops_parallel_hll / speedup_hll / efficiency_hll)."""
     t1 = results[0][1] if results else 0.0
     # column indices per role: (t1, sec, err_rel, err_abs, flops_t1,
     # flops, speedup, efficiency) in the 33-column reference layout
@@ -250,168 +130,3 @@ def _write_scale_rows(out_csv, label, csr, results, work, role="parallel"):
         row[idx[6]] = _fmt(sp)
         row[idx[7]] = _fmt(sp / n)
         _append_row(out_csv, OPENMP_HEADER, row)
-
-
-def run_spmm_device_scale_sweep(
-    name: str,
-    csr: CSRMatrix,
-    out_csv: str,
-    *,
-    device_counts=None,
-    rhs: int = 128,
-    dtype=None,
-    iterations: int = 16,
-    rounds: int = 2,
-    log=print,
-):
-    """Device-scale curve for the MXU BSR SpMM (parallel/spmd_bsr.py):
-    block-rows shard uniformly with zero hot-loop collectives, so this is
-    the framework's best-scaling axis. Same openmp-schema rows as
-    :func:`run_device_scale_sweep` (num_threads = device count); flops
-    columns count the full ``2*nnz*rhs`` SpMM work."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from ..formats.bsr import BSRMatrix
-    from ..parallel.sharding import make_mesh
-    from ..parallel.spmd_bsr import _spmd_run, bsr_spmm_spmd, shard_bsr
-
-    dtype = dtype or jnp.float32
-    ndev = len(jax.devices())
-    on_tpu = jax.devices()[0].platform == "tpu"
-    counts = device_counts or [n for n in (1, 2, 4, 8, 16, 32) if n <= ndev]
-    bsr = BSRMatrix.from_csr(csr)
-    X = np.random.default_rng(0).standard_normal(
-        (csr.ncols, rhs), dtype=np.float32)
-    work = csr.nnz * rhs
-
-    results = []
-    for n in counts:
-        mesh = make_mesh(n)
-        t0 = time.perf_counter()
-        spmd = shard_bsr(bsr, n, mesh=mesh, dtype=dtype)
-        conv_s = time.perf_counter() - t0
-        Y = bsr_spmm_spmd(spmd, X, mesh, interpret=not on_tpu)
-        # sampled-column fp64 oracle (full host SpMM would dwarf the sweep)
-        dm = sampled_spmm_metrics(csr, X, Y)
-        # pre-padded replicated X: the timed path must not pay the in-jit
-        # pad relayout (docs/DESIGN.md) or compute padded-zero lanes
-        from ..ops.pallas_bsr import pad_rhs
-        Xr = jax.device_put(pad_rhs(X, csr.ncols, dtype=dtype,
-                                    to_device=False),
-                            NamedSharding(mesh, P()))
-        sec, _ = time_device_fn_slope(
-            lambda st, xx: _spmd_run(st, xx, mesh=mesh, axis=spmd.axis,
-                                     interpret=not on_tpu),
-            spmd.stacked, Xr, reps=iterations, rounds=rounds,
-        )
-        gf = calculate_flops(work, sec) / 1e9
-        log(f"[{name}] spmd_bsr_spmm x{n} dev: {sec*1e3:.3f} ms = {gf:.3f} "
-            f"GFLOPS (B={rhs}), sig_diffs={dm.significant_diffs} "
-            f"(shard {conv_s:.1f}s)")
-        results.append((n, sec, gf, dm))
-
-    _write_scale_rows(out_csv, f"{name}@spmm{rhs}", csr, results, work)
-    return results
-
-
-def run_ladder_sweep(
-    name: str,
-    csr: CSRMatrix,
-    out_csv: str,
-    *,
-    dtype=None,
-    iterations: int = 32,
-    rounds: int = 2,
-    x: np.ndarray | None = None,
-    log=print,
-):
-    """Time the flagship kernel under each K-bin ladder (tune/autotune.py
-    DEFAULT_LADDERS); write one native-schema row per ladder with
-    stage = ``pallas_sell@<ladder>``. The launch-config scaling axis
-    (≙ the reference's logged block-size choices, cuda_src/utility.cu:236)."""
-    import jax
-    import jax.numpy as jnp
-
-    from ..formats.sell import SellMatrix
-    from ..ops.pallas_sell import device_put_sell, sell_spmv_pallas
-    from ..tune.autotune import DEFAULT_LADDERS
-    from .csv_report import NATIVE_HEADER, STREAM_BW_BYTES
-
-    dtype = dtype or jnp.float32
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if x is None:
-        x = np.ones(csr.ncols, dtype=np.float64)
-    y_ref = csr.spmv(x)
-    xd = jnp.asarray(x, dtype)
-
-    # Heavy-row split, SAME policy as the harness (bench/harness.py): the
-    # r4 ladder sweep fed unsplit power-law heads straight to conversion —
-    # K>=1024 bins compile to ~3k-vreg kernels that FAULT the TPU worker
-    # (probes/ladders_r4.out: powerlaw_web "kernel fault" killed the
-    # process and every later matrix read UNAVAILABLE). This was the
-    # bisected root cause (VERDICT r4 item 4): the faulting geometry is
-    # the unsplit K~=n_cols bin, and the guard is the split.
-    nrows_nat = csr.nrows
-    med_nnz = float(np.median(csr.row_nnz())) if nrows_nat else 0.0
-    split_cap = 16 if med_nnz <= 24 else 256
-    csr, seg_map = csr.split_heavy_rows(split_cap, strided=split_cap < 256)
-    if seg_map is not None:
-        log(f"[{name}] ladders: split heavy rows {nrows_nat} -> {csr.nrows} "
-            f"(cap {split_cap})")
-
-    def _to_natural(y_k):
-        if seg_map is None:
-            return y_k[:nrows_nat]
-        return np.bincount(np.asarray(seg_map), weights=y_k,
-                           minlength=nrows_nat)[:nrows_nat]
-
-    out = []
-    for ladder, k_bins in DEFAULT_LADDERS.items():
-        t0 = time.perf_counter()
-        try:
-            sell = SellMatrix.from_csr(csr, k_bins=k_bins)
-        except Exception as e:  # noqa: BLE001
-            log(f"[{name}] ladder {ladder}: conversion failed: {e}")
-            continue
-        conv_s = time.perf_counter() - t0
-        # one bad ladder costs one row, not the pass: upload guards raise
-        # MemoryError here, and scattered-shape kernels have crashed the
-        # worker mid-call (r4 ladders: powerlaw_web killed the worker and
-        # every later matrix in the process read UNAVAILABLE)
-        try:
-            dsell = device_put_sell(sell, dtype=dtype)
-            fn = lambda d, xx: sell_spmv_pallas(d, xx, interpret=not on_tpu)
-            y = np.asarray(fn(dsell, xd), np.float64)
-            dm = difference_metrics(y_ref, _to_natural(y[: csr.nrows]),
-                                    DEFAULT_ABS_TOL, DEFAULT_REL_TOL)
-            sec, _ = time_device_fn_slope(fn, dsell, xd, reps=iterations,
-                                          rounds=rounds)
-        except Exception as e:  # noqa: BLE001
-            log(f"[{name}] ladder {ladder}: device run failed: "
-                f"{type(e).__name__}: {str(e)[:300]}")
-            continue
-        gf = calculate_flops(csr.nnz, sec) / 1e9
-        log(f"[{name}] pallas_sell@{ladder}: {sec*1e3:.3f} ms = {gf:.3f} GFLOPS "
-            f"(pad {sell.padding_ratio:.2f}, {len(sell.bins)} bins, "
-            f"sig_diffs={dm.significant_diffs})")
-        # Byte estimate + arith label derive from the actual dtype (ADVICE
-        # r4: a bf16/f64 ladder sweep must not be labeled fp32/8B).
-        val_bytes = jnp.dtype(dtype).itemsize
-        per_nnz = (4.0 + val_bytes) * sell.padding_ratio
-        arith = {"float32": "fp32", "float64": "fp64",
-                 "bfloat16": "bf16"}.get(str(jnp.dtype(dtype)),
-                                         str(jnp.dtype(dtype)))
-        pct_bw = per_nnz * csr.nnz / max(sec, 1e-12) / STREAM_BW_BYTES * 100
-        _append_row(
-            out_csv, NATIVE_HEADER,
-            [name, nrows_nat, csr.ncols, csr.nnz, f"pallas_sell@{ladder}",
-             str(jnp.dtype(dtype)), arith, _fmt(sec), f"{gf:.6f}", "",
-             f"{dm.mean_rel_err:.15e}", dm.significant_diffs,
-             f"{dm.max_abs_err:.15e}", f"{dm.max_rel_err:.15e}",
-             f"{sell.padding_ratio:.6f}", f"{per_nnz:.2f}",
-             f"{pct_bw:.2f}"],
-        )
-        out.append((ladder, sec, gf, dm))
-    return out

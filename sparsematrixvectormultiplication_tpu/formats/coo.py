@@ -1,4 +1,4 @@
-"""COO container — the "PreMatrix" of the TPU framework.
+"""COO container — the "PreMatrix" of the framework.
 
 Host-side (numpy) canonical triplet form every converter consumes, mirroring
 the reference's ``PreMatrix`` struct (reference libs/matrix_parser.h:6-14) but

@@ -1,6 +1,6 @@
 """CSR format — host conversion + device-resident arrays.
 
-TPU-first re-design of the reference CSR converter
+Re-design of the reference CSR converter
 (reference src/csr_matrix.c:63-126: count -> prefix-sum -> scatter -> per-row
 quicksort by column). Here the whole conversion is one vectorized
 ``np.lexsort`` over (row, col), which both builds CSR order and sorts each
@@ -149,14 +149,12 @@ class CSRMatrix:
         ``strided=True`` (reorders the heavy rows' entries): segment ``j``
         takes entries ``j, j+nseg, j+2*nseg, ...`` — each segment a uniform
         column-thinned copy of the row, so no segment concentrates in one
-        column region. Required by the SG shared-window layout, where a
-        locally-dense segment cascades through tile layers (formats/sg.py);
-        each segment's entries remain column-sorted (stride subsequence of
-        a sorted run).
+        column region; each segment's entries remain column-sorted (stride
+        subsequence of a sorted run).
 
-        The textbook fix for power-law heads: ultra-heavy rows (webbase-1M
-        class) otherwise force SELL bins whose (K*8, 128) tiles exceed VMEM.
-        Returns ``(self, None)`` when no row exceeds ``cap``.
+        The textbook fix for power-law heads: an ultra-heavy row (webbase-1M
+        class) otherwise keeps one lane busy long after its slice-mates are
+        done. Returns ``(self, None)`` when no row exceeds ``cap``.
         """
         counts = self.row_nnz().astype(np.int64)
         if self.nrows == 0 or (counts.max(initial=0) <= cap):

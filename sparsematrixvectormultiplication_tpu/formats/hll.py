@@ -1,6 +1,6 @@
 """HLL (hacked ELLPACK) format — reference-parity layout, flat-packed for XLA.
 
-Re-designs the reference's HLL converter (src/hll_matrix.c:37-257) for TPU:
+Re-designs the reference's HLL converter (src/hll_matrix.c:37-257) for XLA:
 instead of a Python/C list of per-block ``ELLPACKBlock`` structs with malloc'd
 2-D arrays (hll_matrix.h:15-27), blocks are packed into flat rectangular numpy
 buffers plus an offset table — XLA wants rectangular device buffers

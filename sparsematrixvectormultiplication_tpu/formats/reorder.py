@@ -1,13 +1,12 @@
 """Bandwidth-reducing matrix reordering (reverse Cuthill–McKee).
 
 The reference benchmarks every matrix exactly as stored on disk
-(main.c:25-44) — it has no preprocessing stage.  On TPU, entry *locality*
-is the whole game: the SELL/wl kernels stream narrow-band matrices at
-230–430 GB/s, while zero-locality layouts pay ~1 vector-op per distinct
-(8,128) x-slab (docs/DESIGN.md, round-3 measured facts).  A symmetric
+(main.c:25-44) — it has no preprocessing stage.  Entry *locality* decides
+how often the x gathers of neighbouring rows hit the same cache lines, so
+a narrow band reads x mostly from cache.  A symmetric
 permutation ``A' = P A Pᵀ`` is workload-equivalent SpMV — same nnz, same
-FLOPs, ``y' = P y`` and ``x' = P x`` (with the harness's reference-
-convention ``x = ones``, ``x`` is literally unchanged) — so reordering is
+FLOPs, ``y' = P y`` and ``x' = P x`` (the harness permutes its ``x``
+alike) — so reordering is
 a legitimate preprocessing lever, the sparse-matrix analogue of choosing
 a storage format.
 

@@ -1,6 +1,6 @@
-"""MatrixMarket (.mtx) reader/writer — TPU-framework IO layer.
+"""MatrixMarket (.mtx) reader/writer — the framework's IO layer.
 
-Re-implements (TPU-first, numpy-vectorized) the capabilities of the reference's
+Re-implements (numpy-vectorized) the capabilities of the reference's
 vendored NIST mmio (reference: libs/mmio.{h,c}) plus its COO "PreMatrix" parser
 (reference: src/matrix_parser.c):
 
@@ -321,7 +321,7 @@ def _fast_parse_table(body: bytes, ncols: int, expected_rows: int) -> np.ndarray
 
     Primary path: ``np.fromstring`` text mode — a single C pass, no
     intermediate Python objects (the previous ``body.split()`` materialized
-    ~3 objects/nnz: tens of GB at 100M nnz, VERDICT r1 weak #7). It stops
+    ~3 objects/nnz: tens of GB at 100M nnz). It stops
     silently at the first unparsable token, so the element count doubles as
     the validity check; mismatches fall back to the tokenizing path, chunked
     to bound peak memory.

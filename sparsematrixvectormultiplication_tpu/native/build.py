@@ -171,170 +171,8 @@ def coo_to_csr_native(row, col, val, nrows: int, num_threads: int = 0):
     return row_ptr, col_out, val_out
 
 
-_ROUTE_SRC = os.path.join(_DIR, "fast_route.cpp")
-_ROUTE_LIB = os.path.join(_DIR, "libfastroute.so")
-_route_lib = None
-_route_tried = False
-
-
-def build_route(force: bool = False) -> str | None:
-    return _compile(_ROUTE_SRC, _ROUTE_LIB, "fast_route", force)
-
-
-def load_fast_route():
-    """Return the ctypes-wrapped PR router (fast_route.cpp), or None."""
-    global _route_lib, _route_tried
-    with _lock:
-        if _route_lib is not None or _route_tried:
-            return _route_lib
-        _route_tried = True
-        path = build_route()
-        if path is None:
-            return None
-        try:
-            lib = ctypes.CDLL(path)
-            fn = lib.pr_route
-            fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-            ]
-            _route_lib = fn
-        except OSError as e:
-            sys.stderr.write(f"fast_route load failed ({e}); using numpy path\n")
-            _route_lib = None
-        return _route_lib
-
-
-def run_fast_route(fn, src_row, dst_row, dst_lane, n_rows: int):
-    """Native PR routing (formats/pr.py). Mirrors
-    formats/pr_route.py:route_elements — returns (src_lane, packed_masks,
-    final_lane); raises on router failure (callers fall back to numpy)."""
-    import numpy as np
-
-    n = int(src_row.size)
-    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
-    sr, dr, dl = i32(src_row), i32(dst_row), i32(dst_lane)
-    src_lane = np.empty(n, dtype=np.int32)
-    packed = np.empty((n_rows, 128), dtype=np.int32)
-    final_lane = np.empty((n_rows, 128), dtype=np.int32)
-    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-    rc = fn(n, int(n_rows), ptr(sr), ptr(dr), ptr(dl),
-            ptr(src_lane), ptr(packed), ptr(final_lane))
-    if rc != 0:
-        raise RuntimeError(f"pr_route failed with code {rc}")
-    return src_lane, packed, final_lane
-
-
-_BSR_SRC = os.path.join(_DIR, "fast_bsr.cpp")
-_BSR_LIB = os.path.join(_DIR, "libfastbsr.so")
-_bsr_lib = None
-_bsr_tried = False
-
-
-def build_bsr(force: bool = False) -> str | None:
-    return _compile(_BSR_SRC, _BSR_LIB, "fast_bsr", force)
-
-
-def load_fast_bsr():
-    """Return (count_fn, fill_fn) from fast_bsr.cpp, or None."""
-    global _bsr_lib, _bsr_tried
-    with _lock:
-        if _bsr_lib is not None or _bsr_tried:
-            return _bsr_lib
-        _bsr_tried = True
-        path = build_bsr()
-        if path is None:
-            return None
-        try:
-            lib = ctypes.CDLL(path)
-            cnt = lib.fast_bsr_count
-            cnt.restype = ctypes.c_int64
-            cnt.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int64),
-            ]
-            fil = lib.fast_bsr_fill
-            fil.restype = ctypes.c_int64
-            fil.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
-            ]
-            _bsr_lib = (cnt, fil)
-        except OSError as e:
-            sys.stderr.write(f"fast_bsr load failed ({e}); using numpy path\n")
-            _bsr_lib = None
-        return _bsr_lib
-
-
-def csr_to_bsr_native(row_ptr, col_idx, values, nrows: int, n_bc: int,
-                      value_dtype, max_bytes: int, num_threads: int = 0):
-    """Native CSR→BSR(128x128) blocking. Returns (blocks, bcols, kb,
-    n_real_blocks) or None when the native path is unavailable; raises
-    ValueError on a blown byte budget (same contract as the numpy path)."""
-    import numpy as np
-
-    fns = load_fast_bsr()
-    if fns is None:
-        return None
-    cnt, fil = fns
-    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int64)
-    col_idx = np.ascontiguousarray(col_idx, dtype=np.int32)
-    values = np.ascontiguousarray(values, dtype=np.float64)
-    if num_threads <= 0:
-        num_threads = min(os.cpu_count() or 1, 16)
-    # each thread carries a 4*n_bc-byte stamp array: cap total at 256 MiB
-    num_threads = min(num_threads,
-                      max(1, (256 << 20) // (4 * max(n_bc, 1))))
-    n_br = -(-nrows // 128)
-    counts = np.zeros(n_br, dtype=np.int64)
-    p64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-    p32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-    kb = cnt(p64(row_ptr), p32(col_idx), nrows, n_bc, num_threads,
-             p64(counts))
-    if kb < 0:
-        return None
-    n_real = int(counts.sum())
-    use_f64 = np.dtype(value_dtype) == np.float64
-    itemsize = np.dtype(value_dtype).itemsize
-    stored = n_br * kb * 128 * 128 * itemsize
-    if stored > max_bytes:
-        nnz = int(col_idx.size)
-        raise ValueError(
-            f"BSR expansion is {stored / 2**20:.0f} MiB "
-            f"({n_real} blocks, kb={kb}, fill "
-            f"{nnz / max(n_real * 128 * 128, 1):.4f}) > "
-            f"{max_bytes / 2**20:.0f} MiB budget — this matrix is too "
-            "scattered for the dense-block MXU path; use the SELL/SG "
-            "SpMV layouts instead")
-    if not use_f64 and np.dtype(value_dtype) != np.float32:
-        return None  # native fills f32/f64 only; numpy handles the rest
-    blocks = np.zeros((n_br * kb, 128, 128), dtype=value_dtype)
-    bcols = np.zeros(n_br * kb, dtype=np.int32)
-    rc = fil(p64(row_ptr), p32(col_idx),
-             values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-             nrows, n_bc, kb, num_threads, int(use_f64),
-             blocks.ctypes.data_as(ctypes.c_void_p), p32(bcols))
-    if rc != 0:
-        return None
-    return blocks, bcols, int(kb), n_real
-
-
 if __name__ == "__main__":
     out = build(force=True)
     out_csr = build_csr(force=True)
-    out_route = build_route(force=True)
-    out_bsr = build_bsr(force=True)
     print(f"built: {out}" if out else "fast_mmio build FAILED")
     print(f"built: {out_csr}" if out_csr else "fast_csr build FAILED")
-    print(f"built: {out_route}" if out_route else "fast_route build FAILED")
-    print(f"built: {out_bsr}" if out_bsr else "fast_bsr build FAILED")

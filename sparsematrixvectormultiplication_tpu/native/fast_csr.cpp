@@ -1,9 +1,9 @@
 // fast_csr.cpp — native COO→CSR conversion (counting sort + per-row column
-// sort). TPU-framework re-design of the reference converter
+// sort). Re-design of the reference converter
 // (src/csr_matrix.c:63-126: count → prefix → scatter → per-row quicksort),
 // replacing the numpy np.lexsort path (O(nnz log nnz), single pass over
 // 12+ B/entry keys) with an O(nnz) two-pass counting sort plus short
-// per-row sorts — measured ~5-10x faster at 100M nnz on this host.
+// per-row sorts.
 //
 // Exposed via ctypes (no pybind11 in this image): see native/build.py.
 

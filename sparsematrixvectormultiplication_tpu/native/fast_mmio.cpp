@@ -1,6 +1,6 @@
 // fast_mmio.cpp — multithreaded MatrixMarket coordinate-body parser.
 //
-// Native runtime component of the TPU SpMV framework (≙ the reference's
+// Native runtime component of the SpMV framework (≙ the reference's
 // C parser hot loop, src/matrix_parser.c:69-122, which fscanf's one triplet
 // at a time). This implementation parses the whitespace table with a custom
 // number scanner, split across N threads at line boundaries, so 100M-nnz

@@ -1,6 +1,6 @@
-"""Device SpMV kernels: XLA oracles, Pallas performance kernels, and the
-double-double fp64-class variants."""
+"""Device SpMV: the SELL-C-σ operator and the plain XLA CSR / ELL kernels."""
 
+from .sell import DeviceSell, device_put_sell, sell_spmv
 from .xla import (
     DeviceCSR,
     DeviceELL,
@@ -9,39 +9,10 @@ from .xla import (
     device_put_csr,
     device_put_ell,
     ell_spmv,
-    sell_spmv_xla,
 )
-from .pallas_bsr import DeviceBSR, bsr_spmm_pallas, device_put_bsr, pad_rhs
-from .pallas_sell import (
-    DeviceSell,
-    DeviceSellBin,
-    device_put_sell,
-    pack_x_table,
-    sell_spmv_pallas,
-)
-from .pallas_sell_dd import (
-    DeviceSellDD,
-    device_put_sell_dd,
-    sell_spmv_dd_f64,
-    sell_spmv_pallas_dd,
-)
-from .pallas_hll import device_put_hll_pallas, hll_spmv_pallas, hll_to_sell
-from .pallas_sell_spmm import (
-    device_put_x_multi,
-    pack_x_multi,
-    sell_spmm_pallas,
-)
-from .pallas_split import DeviceSplit, device_put_split, split_spmv_pallas
 
 __all__ = [
-    "DeviceSplit", "device_put_split", "split_spmv_pallas",
-    "device_put_x_multi", "pack_x_multi", "sell_spmm_pallas",
+    "DeviceSell", "device_put_sell", "sell_spmv",
     "DeviceCSR", "DeviceELL", "csr_spmv", "csr_spmm", "device_put_csr",
-    "device_put_ell", "ell_spmv", "sell_spmv_xla",
-    "DeviceBSR", "bsr_spmm_pallas", "device_put_bsr", "pad_rhs",
-    "DeviceSell", "DeviceSellBin", "device_put_sell", "pack_x_table",
-    "sell_spmv_pallas",
-    "DeviceSellDD", "device_put_sell_dd", "sell_spmv_dd_f64",
-    "sell_spmv_pallas_dd",
-    "device_put_hll_pallas", "hll_spmv_pallas", "hll_to_sell",
+    "device_put_ell", "ell_spmv",
 ]

@@ -1,6 +1,6 @@
 """nnz-balanced work partitioning — the framework's load-balance layer.
 
-TPU-native re-design of the reference's thread schedulers:
+Re-design of the reference's thread schedulers:
 
 * ``prepare_thread_distribution`` (src/csr_matrix.c:167-266): greedy sweep
   assigning contiguous row ranges so each OpenMP thread gets
@@ -8,10 +8,9 @@ TPU-native re-design of the reference's thread schedulers:
 * ``prepare_thread_distribution_hll`` (src/hll_matrix.c:410-540): the same
   greedy balance over HLL blocks weighted by padded block area.
 
-On TPU the same algorithm balances (a) *device shards* for multi-chip
-row-sharding (parallel/sharding.py) and (b) group-to-core assignment inside
-the autotuner. The partitioning is identical maths: contiguous prefix ranges
-with greedy target filling.
+Here the same algorithm balances *device shards* for multi-device
+row-sharding (parallel/spmd_sell.py). The partitioning is identical maths:
+contiguous prefix ranges with greedy target filling.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Multi-chip SpMV — mesh sharding over ICI via shard_map / jit shardings.
+"""Multi-device SpMV — mesh sharding via shard_map / jit shardings.
 
 The reference has no distribution of any kind (SURVEY §2.4: single process,
-OpenMP shared memory, one GPU). This module is the TPU-native scaling layer
-that replaces what NCCL/MPI would have been in a GPU port:
+OpenMP shared memory, one GPU). This module is the scaling layer, with
+XLA's collectives (NCCL on GPUs) where MPI would have been:
 
 * **Row sharding (the DP analogue)** — A's rows (ELL rectangles or SELL
   groups) are partitioned across the mesh's ``rows`` axis, balanced by nnz
@@ -13,7 +13,7 @@ that replaces what NCCL/MPI would have been in a GPU port:
 
 * **Column sharding (the TP analogue)** — A's columns and x are sharded;
   every chip computes a partial y over its column slice and a ``psum`` over
-  the ``cols`` axis reduces partials over ICI (≙ SURVEY §2.4 "column-sharding
+  the ``cols`` axis reduces partials (≙ SURVEY §2.4 "column-sharding
   of A with partial-sum reduce").
 
 * **2-D sharding** — both at once on a (rows, cols) mesh.
@@ -80,11 +80,9 @@ def _pad_rows(ja, as_, rows_padded):
 def shard_ell_rows(hll, mesh: Mesh, *, dtype=None, axis: str = "rows") -> ShardedELL:
     """Upload an HLL matrix as a row-sharded ELL rectangle.
 
-    Rows are padded to a multiple of the mesh axis size; the nnz balance
-    across shards is reported by the autotuner (equal row counts are used for
-    the static shape; nnz-weighted balance would require per-shard row
-    permutation — see parallel/scheduler.balanced_partition for the analysis
-    tool).
+    Rows are padded to a multiple of the mesh axis size and split into
+    equal row counts (one static shape); for nnz-balanced shards use the
+    SELL operator (parallel/spmd_sell.py, parallel/scheduler.py).
     """
     ja, as_ = hll.to_rect()
     if dtype is not None:
@@ -199,7 +197,7 @@ def shard_ell_2d(hll, mesh: Mesh, *, dtype=None):
 
 def sharded_spmv_2d(sharded: Sharded2D, x, mesh: Mesh):
     """y = A @ x on a (rows, cols) mesh: partial products per column shard,
-    ``psum`` over the ``cols`` axis (the TP-style ICI reduce)."""
+    ``psum`` over the ``cols`` axis (the TP-style reduce)."""
     nc_sh = mesh.shape["cols"]
     cols_per = sharded.cols_padded // nc_sh
     xp = jnp.pad(jnp.asarray(x), (0, sharded.cols_padded - x.shape[0]))

@@ -1,9 +1,9 @@
 """Chebyshev polynomial preconditioning / smoothing over the SpMV kernels.
 
 The classic strong preconditioners (ILU(0), SSOR, Gauss-Seidel) are
-sparse *triangular solves* — inherently sequential recurrences that map
-terribly onto the TPU's (8,128) vector tiles and XLA's static-dataflow
-model. The TPU-idiomatic substitute is a **polynomial preconditioner**:
+sparse *triangular solves* — inherently sequential recurrences that leave
+a wide parallel device mostly idle. The data-parallel substitute is a
+**polynomial preconditioner**:
 ``M^-1 = p_m(A)`` where ``p_m`` is the degree-``m`` Chebyshev polynomial
 minimizing ``max_{λ∈[lmin,lmax]} |1 - λ p(λ)|``. Applying it is ``m``
 SpMVs — the exact op this framework makes fast — with zero new data

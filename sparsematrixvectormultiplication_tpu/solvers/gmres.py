@@ -8,8 +8,8 @@ other solvers (docs/DESIGN.md XLA semantics): one device program — an
 outer ``lax.while_loop`` over restart cycles whose body runs ``m``
 Arnoldi steps in a ``lax.fori_loop`` with STATIC shapes — the basis
 ``V`` is a fixed ``(m+1, n)`` array, orthogonalization is a masked
-matmul against the whole basis (two (m+1,n)×(n,) products per step,
-MXU-friendly), and the Hessenberg least-squares is carried by Givens
+matmul against the whole basis (two (m+1,n)×(n,) products per step),
+and the Hessenberg least-squares is carried by Givens
 rotations so the in-cycle residual is available as ``|g[j+1]|`` with no
 extra matvec.
 

@@ -2,8 +2,8 @@
 
 Beyond-reference capability (the reference stops at SpMV itself): the
 m-step Lanczos process is the canonical *consumer* of a fast symmetric
-SpMV — every step is one matvec plus vector work, so the round's SELL /
-PR kernels are the hot path. Extremal Ritz values converge far faster
+SpMV — every step is one matvec plus vector work, so the SELL operator
+is the hot path. Extremal Ritz values converge far faster
 than power iteration (``solvers/power.py``) and give much tighter
 spectral bounds for the Chebyshev preconditioner than Gershgorin discs
 (``solvers/chebyshev.py:37``), which over-estimate ``lmax`` by the full
@@ -14,8 +14,8 @@ STATIC step count (XLA traces once; no data-dependent Python control
 flow), static shapes throughout, no host round-trips per step. Full
 reorthogonalization is a flag — it keeps the Krylov basis resident as an
 ``(m, n)`` buffer updated with ``lax.dynamic_update_slice`` and costs one
-(m, n) @ (n,) matmul per step (MXU work, cheap next to the SpMV for the
-sparse operators this framework targets).
+(m, n) @ (n,) matmul per step (cheap next to the SpMV for the sparse
+operators this framework targets).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def lanczos(matvec: Callable, v0, *, m: int = 30, reorth: bool = True):
     Parameters
     ----------
     matvec : the symmetric operator ``v -> A @ v`` (any framework matvec:
-        ``dsell``/``dcsr`` closures, ``pallas_pr`` panels, ...).
+        a SELL operator, a ``DeviceCSR.spmv`` closure, ...).
     v0 : start vector, any nonzero vector of size n.
     m : number of Lanczos steps (static — the scan is traced once).
     reorth : full reorthogonalization against the stored basis each step.

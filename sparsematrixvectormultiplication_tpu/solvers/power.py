@@ -1,7 +1,7 @@
 """Power iteration and PageRank over the framework matvecs.
 
-PageRank is THE production workload of the scattered-regime matrices the
-round-3 kernels exist for (power-law web graphs ≙ webbase-1M in the
+PageRank is the production workload of the scattered short-row matrices
+(power-law web graphs ≙ webbase-1M in the
 reference's sweep, result/result_cuda.csv:11): every iteration is one
 SpMV against a column-stochastic operator plus vector work. Same design
 rules as the other solvers: one jitted ``lax.while_loop``, static

@@ -14,17 +14,16 @@ precision's accuracy floor.
 
 This is the composition the framework's precision ladder exists for:
 
-- **inner**: CG over the bf16 value planes
-  (``device_put_sell(dtype=jnp.bfloat16)`` — half the HBM value stream,
-  ops/pallas_sell.py) at a loose tolerance;
-- **residual**: the fp64-class double-double kernel on TPU
-  (ops/pallas_sell_dd.py, ~1e-13 vs fp64) or the host fp64 oracle
-  (formats/csr.py CSRMatrix.spmv) — TPU has no native f64.
+- **inner**: CG over bf16 or f32 values (``device_put_sell(sell,
+  jnp.bfloat16)`` streams a quarter of the fp64 value bytes) at a loose
+  tolerance;
+- **residual**: the SELL operator in native fp64 on the device
+  (``device_put_sell(sell, jnp.float64)``, with ``jax_enable_x64``) or the
+  host fp64 oracle (formats/csr.py CSRMatrix.spmv).
 
-The reference project runs everything in fp64 because that is the GPU's
-native width (cuda_src/csr_matrix_cuda.cu:96-148); on TPU the fast widths
-are bf16/f32, and refinement is the standard way to buy fp64-level
-answers at reduced-precision speed.
+The reference project runs everything in fp64 (cuda_src/csr_matrix_cuda.cu:
+96-148); refinement buys fp64-level answers while most products stream
+fewer bytes.
 
 The outer loop runs on the host: refinement converges in a few sweeps and
 each inner solve is already one compiled device program (solvers/cg.py),
@@ -57,8 +56,8 @@ def iterative_refinement(
     contraction RATE; any solver that reduces the error works.
 
     ``matvec_hi(x) -> A @ x``: residual-precision matvec. The refinement
-    floor is set by THIS precision (host fp64 CSR oracle, or the dd
-    kernel's f32-pair on TPU).
+    floor is set by THIS precision (the fp64 device operator or the host
+    fp64 CSR oracle).
 
     ``b``, ``x0``, and all outer-loop state are numpy fp64.
 

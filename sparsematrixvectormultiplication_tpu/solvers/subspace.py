@@ -4,9 +4,8 @@
 eigenpair with one SpMV per step. Subspace iteration generalizes to the
 top ``k``: iterate ``Q <- orth(A @ Q)`` and read the eigenvalues off the
 Rayleigh quotient ``Q^T A Q``. Every step's dominant cost is ONE
-multi-RHS SpMM over all k basis vectors (ops/pallas_sell_spmm.py /
-ops/pallas_bsr.py) — A is streamed once per step instead of k times,
-exactly the amortization those kernels exist for.
+multi-RHS SpMM over all k basis vectors (``ops.xla.csr_spmm``) — A is
+streamed once per step instead of k times.
 
 The reference project has no eigensolver surface at all (its scope ends
 at the SpMV benchmark, main.c); this extends the solver layer the same

@@ -1,10 +1,10 @@
-"""Profiling hooks — the TPU analogue of the reference's `-lineinfo` + nvprof
+"""Profiling hooks — the analogue of the reference's `-lineinfo` + nvprof
 workflow (CMakeLists.txt:49, SURVEY §5 tracing).
 
 Wraps `jax.profiler` so any bench stage can emit a TensorBoard-readable trace:
 
     with profile_trace("/tmp/spmv_trace"):
-        sell_spmv_pallas(dsell, x)
+        sell_spmv(dsell, x)
 
 The CLI exposes this as ``--profile-dir`` (one trace per matrix).
 """

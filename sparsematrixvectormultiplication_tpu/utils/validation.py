@@ -12,6 +12,10 @@ Ports both validator formulations of the reference:
   (cuda_src/performance_calculate.cu:103-148): plain mean absolute and mean
   relative error over all entries.
 
+fp64 results are checked more tightly, against the round-off bound of
+their dot products (:func:`roundoff_metrics`): the reference tolerances
+would pass an fp64 stage that had computed in f32.
+
 Both are vectorized numpy; jnp twins run device-side inside the bench loop so
 validation does not force a host round-trip per iteration (unlike the
 reference, which copies y D2H every iteration, main_cuda.cu:183-188).
@@ -27,6 +31,8 @@ __all__ = [
     "DiffMetrics",
     "difference_metrics",
     "difference_metrics_mean",
+    "roundoff_metrics",
+    "roundoff_scale",
     "sampled_spmm_metrics",
     "DEFAULT_ABS_TOL",
     "DEFAULT_REL_TOL",
@@ -110,6 +116,44 @@ def difference_metrics(
         significant_diffs=n_sig,
         max_abs_err=float(abs_diff.max()),
         max_rel_err=float(rel_diff.max()),
+    )
+
+
+def roundoff_scale(csr, x) -> tuple:
+    """``(|A| |x|, k)`` for :func:`roundoff_metrics`: the per-row sum of
+    ``|a_ij x_j|`` and the longest row's length."""
+    from ..formats.csr import CSRMatrix
+
+    a = CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
+                  np.abs(np.asarray(csr.values, np.float64)))
+    k = int(np.max(np.diff(csr.row_ptr), initial=1))
+    return a.spmv(np.abs(np.asarray(x, np.float64))), max(k, 1)
+
+
+def roundoff_metrics(ref, res, scale, k: int) -> DiffMetrics:
+    """fp64 validator: entry ``i`` is significant when ``|res_i - ref_i|``
+    exceeds ``2 k eps scale_i``, with ``scale = |A| |x|`` and ``k`` the
+    longest row (:func:`roundoff_scale`). That is the forward-error bound
+    of a ``k``-term dot product in fp64, doubled because both sides round,
+    each in its own summation order. ``max_rel_err`` is the largest
+    ``|res_i - ref_i| / scale_i``; ``mean_rel_err`` its mean over the
+    significant entries."""
+    ref = np.asarray(ref, dtype=np.float64)
+    res = np.asarray(res, dtype=np.float64)
+    if ref.size == 0:
+        return DiffMetrics()
+    abs_diff = np.abs(ref - res)
+    scale = np.asarray(scale, np.float64)
+    rel = np.where(abs_diff > 0, abs_diff / np.maximum(scale, 1e-300), 0.0)
+    rel = np.where(np.isfinite(res), rel, np.inf)
+    significant = ~(abs_diff <= 2 * k * np.finfo(np.float64).eps * scale)
+    n_sig = int(np.count_nonzero(significant))
+    return DiffMetrics(
+        mean_abs_err=0.0,
+        mean_rel_err=float(rel[significant].mean()) if n_sig else 0.0,
+        significant_diffs=n_sig,
+        max_abs_err=float(abs_diff.max()),
+        max_rel_err=float(rel.max()),
     )
 
 

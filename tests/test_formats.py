@@ -11,7 +11,6 @@ from sparsematrixvectormultiplication_tpu import (
     HLLMatrix,
     SellMatrix,
 )
-from sparsematrixvectormultiplication_tpu.formats.sell import GROUP_ROWS
 
 
 @pytest.mark.parametrize("shape,density", [
@@ -109,7 +108,7 @@ def test_hll_rect_memory_guard(make_random_coo):
     ((100, 80), 0.05),
     ((1024, 1024), 0.01),
     ((2050, 1999), 0.02),
-    pytest.param((5000, 200000), 0.0005,  # many slabs
+    pytest.param((5000, 200000), 0.0005,  # wide: x far beyond any slice
                  marks=pytest.mark.slow),
 ])
 def test_sell_spmv_oracle(make_random_coo, shape, density):
@@ -117,29 +116,6 @@ def test_sell_spmv_oracle(make_random_coo, shape, density):
     sell = SellMatrix.from_coo(coo)
     x = np.random.default_rng(0).standard_normal(shape[1])
     assert np.allclose(sell.spmv(x), s.tocsr() @ x, rtol=1e-12, atol=1e-12)
-
-
-def test_sell_slab_lists_cover_all_columns(make_random_coo):
-    coo, _ = make_random_coo(3000, 2000, 0.02)
-    sell = SellMatrix.from_coo(coo)
-    for b in sell.bins:
-        if b.layout != "k-major":
-            continue  # slab_list semantics differ per layout
-        ng = b.n_groups
-        ja = b.ja.reshape(ng, b.k, 8, 128)
-        for gl in range(ng):
-            slabs_real = set()
-            g = int(b.group_ids[gl])
-            # real entries of this group from the COO
-            mask = (coo.row // GROUP_ROWS) == g
-            slabs_real = set((coo.col[mask] // 128).tolist())
-            listed = set(b.slab_list[gl, : b.slab_count[gl]].tolist())
-            assert slabs_real == listed
-            # every JA slab (incl. padding) must be in the list or value==0
-            q = ja[gl] // 128
-            in_list = np.isin(q, list(listed) or [0])
-            as_ = b.as_.reshape(ng, b.k, 8, 128)[gl]
-            assert np.all(in_list | (as_ == 0.0))
 
 
 def test_sell_padding_ratio_sane(make_random_coo):
@@ -174,26 +150,27 @@ def test_memory_stats(make_random_coo):
 
 
 def test_sell_sigma_sort_powerlaw():
-    """SELL-sigma collapses padding on power-law matrices; output permuted."""
+    """SELL-sigma collapses padding on power-law matrices: the conversion
+    chooses a sort window, pads far less than unsorted slices would, and
+    still writes every row to its own slot."""
     import scipy.sparse as sp
 
+    from sparsematrixvectormultiplication_tpu.formats.sell import (
+        _slice_widths,
+        heavy_row_cap,
+    )
     from sparsematrixvectormultiplication_tpu.models.synthetic import power_law
 
     coo = power_law(20000, 5, seed=11)
     s = sp.coo_matrix((coo.val, (coo.row, coo.col)), shape=coo.shape).tocsr()
-    plain = SellMatrix.from_coo(coo)
-    sigma = SellMatrix.from_csr(
-        __import__("sparsematrixvectormultiplication_tpu").CSRMatrix.from_coo(coo),
-        sigma_sort=True,
-    )
-    assert sigma.padding_ratio < plain.padding_ratio * 0.7
+    sigma = SellMatrix.from_coo(coo)
+    assert sigma.sigma > 1
+    csr = CSRMatrix.from_coo(coo)
+    ext, _ = csr.split_heavy_rows(heavy_row_cap(csr.row_nnz()))
+    unsorted = _slice_widths(ext.row_nnz(), sigma.c).sum() * sigma.c
+    assert sigma.padded_nnz < unsorted * 0.7
     x = np.random.default_rng(0).standard_normal(coo.ncols)
-    y_perm = sigma.spmv(x)
-    y = sigma.unpermute(y_perm)
-    assert np.allclose(y, s @ x, rtol=1e-12, atol=1e-12)
-    # row_perm round trip: kernel slot i holds original row row_perm[i]
-    y_ref = s @ x
-    assert np.allclose(y_perm, y_ref[sigma.row_perm], rtol=1e-12, atol=1e-12)
+    assert np.allclose(sigma.spmv(x), s @ x, rtol=1e-12, atol=1e-12)
 
 
 def test_split_heavy_rows():
@@ -230,10 +207,7 @@ def test_split_heavy_rows():
     assert none is None and same is ext
 
 
-@pytest.mark.slow
 def test_harness_splits_heavy_rows():
-    import jax.numpy as jnp  # noqa: F401
-
     from sparsematrixvectormultiplication_tpu import COOMatrix
     from sparsematrixvectormultiplication_tpu.bench.harness import (
         BenchConfig,
@@ -249,13 +223,12 @@ def test_harness_splits_heavy_rows():
     coo = COOMatrix(3000, 4000, rows[idx], cols[idx],
                     rng.standard_normal(idx.size))
     cfg = BenchConfig(iterations=2, rounds=1,
-                      kernels=("serial_csr", "pallas_sell", "pallas_sell_dd"),
+                      kernels=("serial_csr", "sell", "sell_f64"),
                       flush_between_stages=False)
-    logs = []
-    res = run_matrix("heavy", coo, cfg, log=lambda *a: logs.append(" ".join(map(str, a))))
-    assert res.format_stats.get("heavy_row_segments", 0) > 0
-    assert res.stage("pallas_sell").diff.significant_diffs == 0
-    assert res.stage("pallas_sell_dd").diff.significant_diffs == 0
+    res = run_matrix("heavy", coo, cfg, log=lambda *a: None)
+    assert res.format_stats["sell"]["heavy_row_segments"] > 0
+    assert res.stage("sell").diff.significant_diffs == 0
+    assert res.stage("sell_f64").diff.significant_diffs == 0
 
 
 def test_native_csr_converter_matches_numpy(make_random_coo):
@@ -309,47 +282,3 @@ def test_scipy_interop_roundtrip():
     np.testing.assert_allclose(csr.spmv(x), m @ x, rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(
         np.asarray((csr.to_scipy() @ x)), m @ x, rtol=1e-12, atol=1e-14)
-
-
-def test_chunk_k_span_resolved_and_forced():
-    """K>64 chunk height is span-resolved (round-4 ml_laplace fix): narrow
-    median spans keep the base ck=8 (a (16,128) chunk's pass costs ~3x an
-    (8,128) pass, measured result_tpu_r4_mlck8 vs _mlab); wide spans that
-    would overflow the static-unroll caps take ck16. --chunk-k
-    (chunk_k_forced) always wins. Device kernel parity is covered by the
-    interpret drive in tests/test_ops.py."""
-    from sparsematrixvectormultiplication_tpu.formats.coo import COOMatrix
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-
-    rng = np.random.default_rng(3)
-    n, k = 2048, 80  # ~80 nnz/row -> K=96 bin
-
-    def build(ncols_spread):
-        rows = np.repeat(np.arange(n), k)
-        cols = rng.integers(0, ncols_spread, rows.size)
-        coo = COOMatrix(n, ncols_spread, rows.astype(np.int64),
-                        cols.astype(np.int64),
-                        rng.standard_normal(rows.size))
-        return CSRMatrix.from_coo(coo)
-
-    # narrow spread: every chunk spans <= 16 slabs -> base ck=8 kept
-    narrow = build(2048)
-    s_narrow = SellMatrix.from_csr(narrow, layout="sb-major")
-    assert all(b.chunk_k == 8 for b in s_narrow.bins if b.k > 64)
-
-    # wide spread: ~160 slabs >> _MAX_STATIC_SPAN -> ck16 fallback
-    wide = build(20480)
-    s_wide = SellMatrix.from_csr(wide, layout="sb-major")
-    assert all(b.chunk_k >= 16 for b in s_wide.bins if b.k > 64)
-
-    # explicit chunk_k wins on the wide matrix too
-    forced = SellMatrix.from_csr(wide, layout="sb-major",
-                                 chunk_k=8, chunk_k_forced=True)
-    assert all(b.chunk_k == 8 for b in forced.bins)
-    x = rng.standard_normal(wide.ncols)
-    np.testing.assert_allclose(forced.spmv(x), wide.spmv(x),
-                               rtol=1e-12, atol=1e-12)
-    x2 = rng.standard_normal(narrow.ncols)
-    np.testing.assert_allclose(s_narrow.spmv(x2), narrow.spmv(x2),
-                               rtol=1e-12, atol=1e-12)

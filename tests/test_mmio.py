@@ -2,6 +2,7 @@
 SURVEY §4.2), writer round-trips, typecode queries, error paths."""
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -17,8 +18,10 @@ from sparsematrixvectormultiplication_tpu import (
     write_matrix_market,
 )
 
-
-REFERENCE_FIXTURE = "/root/reference/matrix_generated/general_matrix.mtx"
+# a general real matrix in the reference generator's layout
+# (src/matrix_generator.py: 1-based, row-sorted coordinates)
+REFERENCE_FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                                 "general_matrix.mtx")
 
 
 def test_reference_fixture_matches_scipy():

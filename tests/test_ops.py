@@ -1,21 +1,19 @@
-"""Device kernel tests: XLA ops + Pallas (interpret mode) vs the numpy fp64
-golden reference — the differential strategy of SURVEY §4, automated."""
+"""Device operator tests: the XLA CSR / ELL kernels and the SELL-C-σ
+operator vs the numpy fp64 golden reference — the differential strategy of SURVEY §4,
+automated."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from sparsematrixvectormultiplication_tpu import CSRMatrix, HLLMatrix, SellMatrix
-from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
+from sparsematrixvectormultiplication_tpu.ops.sell import (
     device_put_sell,
-    pack_x_table,
-    sell_spmv_pallas,
+    sell_spmv,
 )
 from sparsematrixvectormultiplication_tpu.ops.xla import (
     device_put_csr,
     device_put_ell,
-    sell_spmv_xla,
 )
 from sparsematrixvectormultiplication_tpu.utils.validation import (
     difference_metrics,
@@ -46,98 +44,40 @@ def test_xla_ell_f64(problem):
 
 def test_xla_sell_f64(problem):
     coo, s, x = problem
-    dsell = device_put_sell(SellMatrix.from_coo(coo), dtype=jnp.float64)
-    y = np.asarray(sell_spmv_xla(dsell, pack_x_table(jnp.asarray(x), 2500)))[:3000]
+    dsell = device_put_sell(SellMatrix.from_coo(coo), jnp.float64)
+    y = np.asarray(sell_spmv(dsell, jnp.asarray(x)))
     assert np.allclose(y, s.tocsr() @ x, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.slow
-def test_pallas_sell_matches_xla_twin_exactly(problem):
-    """Pallas kernel vs the jnp twin on identical f32 data: bitwise-same
-    layout and reduction order -> results must agree to f32 roundoff."""
+def test_sell_f32_accuracy(problem):
     coo, s, x = problem
-    sell = SellMatrix.from_coo(coo)
-    dsell = device_put_sell(sell, dtype=jnp.float32)
-    x32 = jnp.asarray(x, jnp.float32)
-    y_xla = np.asarray(sell_spmv_xla(dsell, pack_x_table(x32, 2500)))[:3000]
-    y_pal = np.asarray(sell_spmv_pallas(dsell, x32, interpret=True))
-    assert np.max(np.abs(y_xla - y_pal)) < 1e-5
-
-
-@pytest.mark.slow
-def test_pallas_sell_f32_accuracy(problem):
-    coo, s, x = problem
-    dsell = device_put_sell(SellMatrix.from_coo(coo), dtype=jnp.float32)
-    y = np.asarray(sell_spmv_pallas(dsell, jnp.asarray(x, jnp.float32), interpret=True))
-    y_ref = s.tocsr() @ x
-    dm = difference_metrics_mean(y_ref, y)
+    dsell = device_put_sell(SellMatrix.from_coo(coo), jnp.float32)
+    y = np.asarray(sell_spmv(dsell, jnp.asarray(x, jnp.float32)))
+    dm = difference_metrics_mean(s.tocsr() @ x, y)
     assert dm.mean_rel_err < 1e-5  # f32 with ~25 nnz/row
-
-
-@pytest.mark.slow
-def test_pallas_sell_f64_interpret(problem):
-    coo, s, x = problem
-    dsell = device_put_sell(SellMatrix.from_coo(coo), dtype=jnp.float64)
-    y = np.asarray(sell_spmv_pallas(dsell, jnp.asarray(x), interpret=True))
-    assert np.allclose(y, s.tocsr() @ x, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape,density", [
     ((1024, 1024), 0.02),
-    ((1030, 777), 0.03),     # partial last group, odd N
-    ((100, 100), 0.05),      # single group, tiny
-    pytest.param((4096, 131072), 0.0005,  # slab-heavy
-                 marks=pytest.mark.slow),
+    ((1030, 777), 0.03),     # partial last slice, odd N
+    ((100, 100), 0.05),      # single slice, tiny
+    ((4096, 131072), 0.0005),  # wide: x far larger than any slice's reach
 ])
-def test_pallas_sell_shapes(make_random_coo, shape, density):
+def test_sell_shapes(make_random_coo, shape, density):
     coo, s = make_random_coo(*shape, density)
     x = np.random.default_rng(3).standard_normal(shape[1])
-    dsell = device_put_sell(SellMatrix.from_coo(coo), dtype=jnp.float64)
-    y = np.asarray(sell_spmv_pallas(dsell, jnp.asarray(x), interpret=True))
+    dsell = device_put_sell(SellMatrix.from_coo(coo), jnp.float64)
+    y = np.asarray(sell_spmv(dsell, jnp.asarray(x)))
     assert np.allclose(y, s.tocsr() @ x, rtol=1e-11, atol=1e-11)
-
-
-@pytest.mark.slow
-def test_pallas_multi_bin(make_random_coo):
-    """Matrix engineered to span several K bins: mixes short and long rows."""
-    import scipy.sparse as sp
-
-    rng = np.random.default_rng(5)
-    M, N = 4096, 4096
-    rows, cols, vals = [], [], []
-    for g, k in [(0, 2), (1, 30), (2, 100), (3, 7)]:
-        r0 = g * 1024
-        for r in range(r0, r0 + 1024, 16):
-            c = rng.choice(N, size=k, replace=False)
-            rows.extend([r] * k)
-            cols.extend(c.tolist())
-            vals.extend(rng.standard_normal(k).tolist())
-    s = sp.coo_matrix((vals, (rows, cols)), shape=(M, N))
-    from sparsematrixvectormultiplication_tpu import COOMatrix
-
-    coo = COOMatrix(M, N, s.row, s.col, s.data)
-    x = rng.standard_normal(N)
-    # un-merged: several K bins, exercises the multi-pallas_call path
-    sell = SellMatrix.from_coo(coo, merge_bins=False)
-    assert len(sell.bins) >= 3
-    dsell = device_put_sell(sell, dtype=jnp.float64)
-    y = np.asarray(sell_spmv_pallas(dsell, jnp.asarray(x), interpret=True))
-    assert np.allclose(y, s.tocsr() @ x, rtol=1e-11, atol=1e-11)
-    # default: the cost model merges this small matrix into fewer launches
-    merged = SellMatrix.from_coo(coo)
-    assert len(merged.bins) < len(sell.bins)
-    dm = device_put_sell(merged, dtype=jnp.float64)
-    ym = np.asarray(sell_spmv_pallas(dm, jnp.asarray(x), interpret=True))
-    assert np.allclose(ym, s.tocsr() @ x, rtol=1e-11, atol=1e-11)
 
 
 def test_empty_matrix():
     from sparsematrixvectormultiplication_tpu import COOMatrix
 
     coo = COOMatrix(8, 8, np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0))
-    dsell = device_put_sell(SellMatrix.from_coo(coo), dtype=jnp.float64)
-    y = np.asarray(sell_spmv_pallas(dsell, jnp.ones(8), interpret=True))
-    assert np.allclose(y, 0.0)
+    dsell = device_put_sell(SellMatrix.from_coo(coo), jnp.float64)
+    y = np.asarray(sell_spmv(dsell, jnp.ones(8)))
+    assert y.shape == (8,) and np.allclose(y, 0.0)
 
 
 def test_validation_metrics_reference_formula():
@@ -161,204 +101,38 @@ def test_validation_identical_is_zero():
     assert dm.significant_diffs == 0 and dm.mean_rel_err == 0.0
 
 
-@pytest.mark.slow
-def test_sb_list_layout_forced(make_random_coo):
-    """sb-list hybrid kernel: per-chunk distinct slab lists."""
-    from sparsematrixvectormultiplication_tpu.models.synthetic import fem_3d
-
-    coo = fem_3d(12, 12, 12, dof=3, seed=0)
+def test_sell_multi_bin():
+    """Matrix engineered to span several widths: every bin scatters its
+    sums into the output the previous bins wrote."""
     import scipy.sparse as sp
 
-    s = sp.coo_matrix((coo.val, (coo.row, coo.col)), shape=coo.shape).tocsr()
-    sell = SellMatrix.from_coo(coo, layout="sb-list")
-    assert all(b.layout == "sb-list" for b in sell.bins)
-    x = np.random.default_rng(0).standard_normal(coo.ncols)
-    y = np.asarray(sell_spmv_pallas(
-        device_put_sell(sell, dtype=jnp.float64), jnp.asarray(x), interpret=True))
-    assert np.allclose(y, s @ x, rtol=1e-11, atol=1e-11)
+    from sparsematrixvectormultiplication_tpu import COOMatrix
+
+    rng = np.random.default_rng(5)
+    M, N = 4096, 4096
+    rows, cols = [], []
+    for g, k in [(0, 2), (1, 30), (2, 100), (3, 7)]:
+        for r in range(g * 1024, (g + 1) * 1024, 16):
+            rows.extend([r] * k)
+            cols.extend(rng.choice(N, size=k, replace=False).tolist())
+    s = sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                      shape=(M, N))
+    sell = SellMatrix.from_coo(COOMatrix(M, N, s.row, s.col, s.data))
+    assert len(sell.bins) >= 3
+    x = rng.standard_normal(N)
+    y = np.asarray(sell_spmv(device_put_sell(sell, jnp.float64),
+                                    jnp.asarray(x)))
+    assert np.allclose(y, s.tocsr() @ x, rtol=1e-11, atol=1e-11)
 
 
-def test_sb_list_auto_choice_on_stencil():
-    """The cost model should pick sb-list for stencil matrices whose chunk
-    ranges are wide but distinct counts small."""
-    from sparsematrixvectormultiplication_tpu.models.synthetic import fem_3d
+def test_csr_spmm_xla_matches_scipy(rng):
+    """The multi-RHS CSR SpMM (the solvers' matmat) against scipy."""
+    from sparsematrixvectormultiplication_tpu.models import synthetic as syn
+    from sparsematrixvectormultiplication_tpu.ops.xla import csr_spmm
 
-    coo = fem_3d(16, 16, 16, dof=3, seed=0)
-    sell = SellMatrix.from_coo(coo)
-    # clustered stencils pick a distinct-slab layout: sb-list or the
-    # window-layered (wl) kernel, whichever the cost model prices cheaper
-    assert any(b.layout in ("sb-list", "wl") for b in sell.bins), \
-        [(b.layout, b.k, b.span) for b in sell.bins]
-
-
-@pytest.mark.slow
-def test_sb_list_dd(make_random_coo):
-    from sparsematrixvectormultiplication_tpu.models.synthetic import fem_3d
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell_dd import (
-        device_put_sell_dd,
-        sell_spmv_dd_f64,
-    )
-    import scipy.sparse as sp
-
-    coo = fem_3d(10, 10, 10, dof=3, seed=1)
-    s = sp.coo_matrix((coo.val, (coo.row, coo.col)), shape=coo.shape).tocsr()
-    sell = SellMatrix.from_coo(coo, layout="sb-list")
-    x = np.random.default_rng(1).standard_normal(coo.ncols)
-    y = np.asarray(sell_spmv_dd_f64(device_put_sell_dd(sell), jnp.asarray(x),
-                                    interpret=True))
-    y_ref = s @ x
-    nz = y_ref != 0
-    assert np.max(np.abs(y - y_ref)[nz] / np.abs(y_ref[nz])) < 1e-10
-
-
-# ---------------------------------------------------------------------------
-# contiguous-tail group padding (round 4): odd group counts must not force
-# g_per=1 (the per-grid-step floor behind the r3 ml_laplace regression)
-# ---------------------------------------------------------------------------
-
-
-def test_contig_tail_pad_odd_groups_validates():
-    """A 5-group single-bin matrix pads to a g_per multiple; the padded
-    zero groups stream x[0]*0.0 into cropped y rows — results must stay
-    oracle-exact and y_groups must cover the padding."""
-    import jax.numpy as jnp
-
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import banded
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-        device_put_sell,
-        sell_spmv_pallas,
-    )
-
-    csr = CSRMatrix.from_coo(banded(5 * 1024, 12, 200, seed=5))
-    sell = SellMatrix.from_csr(csr, layout="sb-major")
-    d = device_put_sell(sell, dtype=jnp.float32)
-    assert d.y_groups >= d.num_groups
-    padded_bins = [b for b in d.bins if b.n_groups > sell.num_groups]
-    if d.y_groups > d.num_groups:
-        assert padded_bins, "y_groups grew but no bin was padded"
-        # padded bin group count is a multiple of a power-of-two g_per
-        assert padded_bins[0].n_groups % 2 == 0
-    x = np.random.default_rng(0).standard_normal(csr.ncols)
-    y = np.asarray(
-        sell_spmv_pallas(d, jnp.asarray(x, jnp.float32), interpret=True),
-        np.float64)
-    y_ref = csr.spmv(x)
-    rel = np.abs(y - y_ref) / np.maximum(1e-6, np.abs(y_ref))
-    assert y.shape[0] == csr.nrows
-    assert np.max(rel) < 1e-3
-
-
-def test_contig_tail_pad_dd_validates():
-    import jax.numpy as jnp
-
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import banded
-    from sparsematrixvectormultiplication_tpu.ops.doubledouble import (
-        combine_f64,
-        split_f64,
-    )
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell_dd import (
-        device_put_sell_dd,
-        sell_spmv_pallas_dd,
-    )
-
-    csr = CSRMatrix.from_coo(banded(5 * 1024, 12, 200, seed=7))
-    sell = SellMatrix.from_csr(csr, layout="sb-major")
-    d = device_put_sell_dd(sell)
-    assert d.y_groups >= d.num_groups
-    x = np.random.default_rng(1).standard_normal(csr.ncols)
-    xh, xl = split_f64(x)
-    yh, yl = sell_spmv_pallas_dd(d, jnp.asarray(xh), jnp.asarray(xl),
-                                 interpret=True)
-    y = np.asarray(combine_f64(yh, yl), np.float64)
-    y_ref = csr.spmv(x)
-    rel = np.abs(y - y_ref) / np.maximum(1e-6, np.abs(y_ref))
-    # 1.13e-11 measured with AND without padding on this matrix (the
-    # rel-floor near-zero rows dominate); padding adds zero error
-    assert np.max(rel) < 1e-10
-
-
-def test_sb_major_i16_bit_identical(monkeypatch):
-    """Chunk-relative int16 sb-major index plane (SPMV_SB_I16=1, VERDICT r4
-    item 6): outputs bit-identical to the int32 plane; index bytes halve."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import banded
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-        device_put_sell, device_put_x, sell_spmv_pallas,
-    )
-
-    csr = CSRMatrix.from_coo(banded(2048, 10, 260, seed=3))
-    x = np.random.default_rng(0).standard_normal(csr.ncols)
-    sell = SellMatrix.from_csr(csr, layout="sb-major")
-    xd = device_put_x(x, csr.ncols, jnp.float32)
-    outs = {}
-    for flag in ("0", "1"):
-        monkeypatch.setenv("SPMV_SB_I16", flag)
-        d = device_put_sell(sell, dtype=jnp.float32)
-        if flag == "1":
-            i16 = [b for b in d.bins if b.ja.dtype == jnp.int16]
-            assert i16, "no int16 sb bin"
-            for b in i16:
-                assert b.ja.nbytes * 2 == b.as_.nbytes  # index plane halved
-        outs[flag] = np.asarray(sell_spmv_pallas(d, xd, interpret=True))
-    np.testing.assert_array_equal(outs["0"], outs["1"])
-
-
-def test_sb_list_i16_bit_identical(monkeypatch):
-    """sb-list list-position int16 plane (SPMV_SB_I16=1): bit-identical."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import fem_3d
-
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-        device_put_sell, device_put_x, sell_spmv_pallas,
-    )
-
-    csr = CSRMatrix.from_coo(fem_3d(7, 7, 7, dof=3, seed=7))
-    x = np.random.default_rng(0).standard_normal(csr.ncols)
-    sell = SellMatrix.from_csr(csr, layout="sb-list")
-    assert any(b.layout == "sb-list" for b in sell.bins)
-    xd = device_put_x(x, csr.ncols, jnp.float32)
-    outs = {}
-    for flag in ("0", "1"):
-        monkeypatch.setenv("SPMV_SB_I16", flag)
-        d = device_put_sell(sell, dtype=jnp.float32)
-        if flag == "1":
-            assert any(b.ja.dtype == jnp.int16 for b in d.bins)
-        outs[flag] = np.asarray(sell_spmv_pallas(d, xd, interpret=True))
-    np.testing.assert_array_equal(outs["0"], outs["1"])
-
-
-def test_oversize_bin_split_preserves_results(monkeypatch):
-    """127M-scale compile-500 guard: bins whose scalar-prefetch tables
-    exceed the SMEM budget are split into group-range sub-bins at
-    device_put; outputs must be bit-identical."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    import sparsematrixvectormultiplication_tpu.ops.pallas_sell as ps
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.models.synthetic import banded
-
-    csr = CSRMatrix.from_coo(banded(60_000, 8, 400, seed=7))
-    x = np.random.default_rng(0).standard_normal(csr.ncols)
-    sell = SellMatrix.from_csr(csr)
-    xd = ps.device_put_x(x, csr.ncols, jnp.float32)
-    y0 = np.asarray(ps.sell_spmv_pallas(
-        ps.device_put_sell(sell, dtype=jnp.float32), xd, interpret=True))
-    monkeypatch.setattr(ps, "_SMEM_TABLE_CAP", 256)
-    d = ps.device_put_sell(sell, dtype=jnp.float32)
-    assert len(d.bins) > len(sell.bins)
-    y1 = np.asarray(ps.sell_spmv_pallas(d, xd, interpret=True))
-    np.testing.assert_array_equal(y0, y1)
+    csr = CSRMatrix.from_coo(syn.dense_rows_mix(400, seed=10))
+    X = rng.standard_normal((csr.ncols, 6))
+    y = np.asarray(csr_spmm(
+        jnp.asarray(csr.values), jnp.asarray(csr.col_idx),
+        jnp.asarray(csr.row_ids()), jnp.asarray(X), nrows=csr.nrows))
+    np.testing.assert_allclose(y, csr.to_scipy() @ X, rtol=1e-10, atol=1e-10)

@@ -1,18 +1,17 @@
 """Mixed-precision iterative refinement (solvers/refine.py): bf16/f32
-inner solves + high-precision residuals converge to fp64-level accuracy —
-the composition the precision ladder (bf16 / f32 / f64-dd) exists for.
+inner solves + fp64 residuals converge to fp64-level accuracy — the
+composition the precision ladder (bf16 / f32 / f64) exists for.
 """
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from sparsematrixvectormultiplication_tpu.formats.coo import COOMatrix
 from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
 from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
+from sparsematrixvectormultiplication_tpu.ops.sell import (
     device_put_sell,
-    sell_spmv_pallas,
+    sell_spmv,
 )
 from sparsematrixvectormultiplication_tpu.solvers import (
     cg,
@@ -35,12 +34,10 @@ def test_refinement_bf16_inner_reaches_fp64_accuracy():
     never solve past ~1e-3 alone; refinement with fp64 residuals drives
     it to 1e-12."""
     csr = _spd_laplacian(1536)
-    sell = SellMatrix.from_csr(csr, layout="k-major")
-    assert getattr(sell, "row_perm", None) is None
-    dbf = device_put_sell(sell, dtype=jnp.bfloat16)
+    dbf = device_put_sell(SellMatrix.from_csr(csr), jnp.bfloat16)
 
     def matvec_bf16(v):
-        return sell_spmv_pallas(dbf, v, interpret=True)[:csr.nrows]
+        return sell_spmv(dbf, v)
 
     def inner(r):
         x, _, _ = cg(matvec_bf16, jnp.asarray(r, jnp.float32),
@@ -59,11 +56,10 @@ def test_refinement_bf16_inner_reaches_fp64_accuracy():
 def test_refinement_direct_f32_inner():
     """Works with any contracting inner solve — plain f32 CG included."""
     csr = _spd_laplacian(1024)
-    sell = SellMatrix.from_csr(csr, layout="k-major")
-    d32 = device_put_sell(sell, dtype=jnp.float32)
+    d32 = device_put_sell(SellMatrix.from_csr(csr), jnp.float32)
 
     def inner(r):
-        x, _, _ = cg(lambda v: sell_spmv_pallas(d32, v, interpret=True)[:csr.nrows],
+        x, _, _ = cg(lambda v: sell_spmv(d32, v),
                      jnp.asarray(r, jnp.float32), tol=1e-4, maxiter=200)
         return x
 
@@ -112,42 +108,26 @@ def test_refinement_slow_contraction_not_aborted():
     assert resnorms[-1] <= 1e-10, resnorms[-1]
 
 
-@pytest.mark.slow
-def test_refinement_dd_residual_on_device():
-    """The all-on-device composition: f32 inner CG + fp64-class dd kernel
-    residuals (ops/pallas_sell_dd.py) — no host fp64 matvec needed, the
-    TPU-native path to fp64-level answers (TPU has no f64)."""
-    import jax.numpy as jnp
-
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-        device_put_sell,
-        sell_spmv_pallas,
-    )
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell_dd import (
-        device_put_sell_dd,
-        sell_spmv_dd_f64,
-    )
-
+def test_refinement_f64_residual_on_device():
+    """The all-on-device composition: f32 inner CG + native fp64 residuals
+    from the SELL operator — no host fp64 matvec needed."""
     csr = _spd_laplacian(1024)
-    sell = SellMatrix.from_csr(csr, layout="k-major")
-    d32 = device_put_sell(sell, dtype=jnp.float32)
-    ddd = device_put_sell_dd(sell)
+    sell = SellMatrix.from_csr(csr)
+    d32 = device_put_sell(sell, jnp.float32)
+    d64 = device_put_sell(sell, jnp.float64)
 
     def inner(r):
-        x, _, _ = cg(lambda v: sell_spmv_pallas(d32, v, interpret=True)[:csr.nrows],
+        x, _, _ = cg(lambda v: sell_spmv(d32, v),
                      jnp.asarray(r, jnp.float32), tol=1e-4, maxiter=200)
         return x
 
-    def matvec_dd(v):
-        return np.asarray(
-            sell_spmv_dd_f64(ddd, jnp.asarray(v), interpret=True),
-            np.float64)[:csr.nrows]
+    def matvec_f64(v):
+        return np.asarray(sell_spmv(d64, jnp.asarray(v)), np.float64)
 
     b = np.random.default_rng(3).standard_normal(csr.nrows)
-    x, sweeps, resnorms = iterative_refinement(inner, matvec_dd, b,
-                                               tol=1e-11)
-    # floor set by the dd residual (~1e-13 kernel accuracy), reached
-    assert resnorms[-1] <= 1e-11, resnorms
-    # and the TRUE fp64 residual agrees (dd did not lie)
-    r_true = b - np.column_stack([csr.spmv(x)]).ravel()
-    assert np.linalg.norm(r_true) / np.linalg.norm(b) <= 1e-10
+    x, sweeps, resnorms = iterative_refinement(inner, matvec_f64, b,
+                                               tol=1e-12)
+    assert resnorms[-1] <= 1e-12, resnorms
+    # and the host fp64 residual agrees
+    r_true = b - csr.spmv(x)
+    assert np.linalg.norm(r_true) / np.linalg.norm(b) <= 1e-11

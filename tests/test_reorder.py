@@ -2,7 +2,7 @@
 reduction on shuffled-band / road graphs, harness integration.
 
 The reference has no preprocessing stage (main.c:25-44); reordering is a
-TPU-first locality lever, so these tests anchor on workload equivalence:
+locality lever, so these tests anchor on workload equivalence:
 (P A Pᵀ)(P x) == P (A x) exactly in fp64.
 """
 
@@ -146,9 +146,9 @@ def test_harness_reorder_integration():
 
     coo = road_network(4000, seed=5)
     cfg = BenchConfig(iterations=2, rounds=1, skip=1,
-                      kernels=("serial_csr", "xla_csr", "pallas_sell"),
+                      kernels=("serial_csr", "xla_csr", "sell"),
                       reorder="rcm")
     res = run_matrix("road_rcm", coo, cfg, log=lambda *a, **k: None)
     assert res.format_stats["reorder"]["applied"]
-    for s in ("xla_csr", "pallas_sell"):
+    for s in ("xla_csr", "sell"):
         assert res.stages[s].diff.significant_diffs == 0, s

@@ -1,11 +1,10 @@
-"""Multi-path device-scale sweep (bench/scale.py run_path_scale_sweep).
+"""Device-scale sweep (bench/scale.py run_path_scale_sweep).
 
-VERDICT r3 item 7: measured scaling must cover SELL + HLL + PR + split
-shard paths, with the HLL curve filling the reference CSV's hll column
-family (those columns were all zero in the r3 artifacts). These tests run
-each path at 1-2 virtual CPU devices on tiny matrices and check (a) the
-result validates against the fp64 oracle and (b) the rows land in the
-documented openmp-schema columns (src/utility.c:114-120 layout).
+The sweep covers the row-sharded SELL and ELL paths, with the ELL curve
+filling the reference CSV's hll column family. These tests run each path
+at 1-2 virtual CPU devices on tiny matrices and check (a) the result
+validates against the fp64 oracle and (b) the rows land in the documented
+openmp-schema columns (src/utility.c:114-120 layout).
 """
 
 import csv
@@ -47,15 +46,15 @@ def _col(rows, name):
 @pytest.mark.parametrize("path_name,kind", [
     ("sell", "banded"),
     ("hll", "banded"),
-    ("pr", "road"),
-    ("split", "road"),
+    ("sell", "road"),
+    ("hll", "road"),
 ])
 def test_path_scale_sweep_validates(path_name, kind, tmp_path):
     csr = _csr(kind)
     out = str(tmp_path / "scale.csv")
     results = run_path_scale_sweep(
         "tiny", csr, out, path_name, device_counts=[1, 2],
-        iterations=2, rounds=1, log=lambda m: None)
+        iterations=2, rounds=1, allow_cpu=True, log=lambda m: None)
     assert len(results) == 2
     for n, sec, gf, dm in results:
         assert dm.significant_diffs == 0
@@ -81,7 +80,8 @@ def test_hll_role_fills_hll_columns_only(tmp_path):
     csr = _csr("banded")
     out = str(tmp_path / "scale.csv")
     run_path_scale_sweep("tiny", csr, out, "hll", device_counts=[1],
-                         iterations=2, rounds=1, log=lambda m: None)
+                         iterations=2, rounds=1, allow_cpu=True,
+                         log=lambda m: None)
     rows = _rows(out)
     r = rows[1]
     assert float(r[_col(rows, "time_parallel_hll")]) > 0
@@ -90,34 +90,25 @@ def test_hll_role_fills_hll_columns_only(tmp_path):
     assert float(r[_col(rows, "flops_parallel")]) == 0.0
 
 
-def test_ladder_sweep_splits_heavy_rows(tmp_path):
-    """Regression for the r4 powerlaw worker crash (VERDICT r4 item 4):
-    the ladder sweep must apply the harness's heavy-row split so no
-    K>=1024 bin (the faulting kernel geometry) ever reaches conversion,
-    and validation must reduce segments back to natural rows."""
-    import csv as csvmod
-
-    import numpy as np
-
-    from sparsematrixvectormultiplication_tpu.bench.scale import (
-        run_ladder_sweep,
-    )
-    from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
+def test_sell_path_splits_heavy_rows(tmp_path):
+    """A power-law head is split into segments inside every shard, and the
+    sweep's result is reduced back to natural rows."""
     from sparsematrixvectormultiplication_tpu.models.synthetic import (
         power_law,
     )
 
-    coo = power_law(2048, avg_nnz_per_row=6, seed=5)
-    csr = CSRMatrix.from_coo(coo)
+    csr = CSRMatrix.from_coo(power_law(2048, avg_nnz_per_row=6, seed=5))
     assert int(csr.row_nnz().max()) > 256  # a real power-law head
-    out = str(tmp_path / "ladders.csv")
-    rows = run_ladder_sweep("pl_probe", csr, out, iterations=2, rounds=1,
-                            log=lambda *_: None)
-    assert rows, "no ladder produced a row"
-    with open(out) as f:
-        table = list(csvmod.reader(f))
-    sig_col = table[0].index("significant_diffs")
-    nrows_col = table[0].index("rows")
-    for r in table[1:]:
-        assert int(r[sig_col]) == 0          # exact after segment reduce
-        assert int(r[nrows_col]) == csr.nrows  # natural rows reported
+    results = run_path_scale_sweep(
+        "pl_probe", csr, str(tmp_path / "s.csv"), "sell",
+        device_counts=[1, 4], iterations=2, rounds=1, allow_cpu=True,
+        log=lambda m: None)
+    assert [r[0] for r in results] == [1, 4]
+    assert all(dm.significant_diffs == 0 for _, _, _, dm in results)
+
+
+def test_scale_sweep_refuses_cpu(tmp_path):
+    """A measurement path: without allow_cpu it exits on a CPU device."""
+    with pytest.raises(SystemExit, match="no GPU"):
+        run_path_scale_sweep("tiny", _csr("banded"), str(tmp_path / "s.csv"),
+                             "sell", device_counts=[1], log=lambda m: None)

@@ -80,15 +80,14 @@ def test_bicgstab_nonsymmetric_fp64():
     np.testing.assert_allclose(np.asarray(x), x_ref, rtol=1e-6, atol=1e-8)
 
 
-def test_cg_multi_over_bsr_spmm():
-    """k systems share one MXU SpMM per iteration (solvers/cg.py cg_multi
-    over ops/pallas_bsr.py)."""
+def test_cg_multi_over_csr_spmm():
+    """k systems share one multi-RHS SpMM per iteration (solvers/cg.py
+    cg_multi over ops/xla.py csr_spmm)."""
     import jax.numpy as jnp
 
-    from sparsematrixvectormultiplication_tpu.formats.bsr import BSRMatrix
-    from sparsematrixvectormultiplication_tpu.ops.pallas_bsr import (
-        bsr_spmm_pallas,
-        device_put_bsr,
+    from sparsematrixvectormultiplication_tpu.ops.xla import (
+        csr_spmm,
+        device_put_csr,
     )
     from sparsematrixvectormultiplication_tpu.solvers import cg_multi
 
@@ -98,10 +97,10 @@ def test_cg_multi_over_bsr_spmm():
     B = rng.standard_normal((csr.nrows, k))
     x_ref = np.linalg.solve(dense, B)
 
-    d = device_put_bsr(BSRMatrix.from_csr(csr))
+    d = device_put_csr(csr, dtype=jnp.float32)
 
     def matmat(V):
-        return bsr_spmm_pallas(d, V, interpret=True)
+        return csr_spmm(d.values, d.col_idx, d.row_ids, V, nrows=d.nrows)
 
     X, iters, res = cg_multi(matmat, jnp.asarray(B, jnp.float32),
                              tol=1e-5, maxiter=400)
@@ -111,13 +110,12 @@ def test_cg_multi_over_bsr_spmm():
     assert rel.max() < 5e-3, f"{rel.max():.2e}"
 
 
-def test_cg_pallas_sell_f32():
+def _cg_sell(dtype, tol, bar):
+    """CG over the SELL operator at ``dtype``."""
     import jax.numpy as jnp
 
     from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-    from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-        device_put_sell,
-    )
+    from sparsematrixvectormultiplication_tpu.ops.sell import device_put_sell
     from sparsematrixvectormultiplication_tpu.solvers import cg_sell
 
     csr, dense = _spd_csr(n=1200, seed=5)
@@ -125,15 +123,41 @@ def test_cg_pallas_sell_f32():
     b = rng.standard_normal(csr.nrows)
     x_ref = np.linalg.solve(dense, b)
 
-    d = device_put_sell(SellMatrix.from_csr(csr), dtype=jnp.float32)
-    x, iters, res = cg_sell(d, jnp.asarray(b, jnp.float32), tol=1e-5,
-                            maxiter=400, interpret=True)
+    d = device_put_sell(SellMatrix.from_csr(csr), jnp.dtype(dtype))
+    x, iters, res = cg_sell(d, jnp.asarray(b, dtype), tol=tol,
+                            maxiter=400)
     assert int(iters) < 400, "CG did not converge"
     # f32 matvec + f32 recurrences: expect ~1e-3 relative on a
-    # well-conditioned diagonally-dominant system
+    # well-conditioned diagonally-dominant system; f64 far tighter
     rel = np.abs(np.asarray(x, np.float64) - x_ref) / np.maximum(
         1.0, np.abs(x_ref))
-    assert rel.max() < 5e-3, f"{rel.max():.2e}"
+    assert rel.max() < bar, f"{rel.max():.2e}"
+
+
+def test_cg_sell_f32():
+    _cg_sell("float32", 1e-5, 5e-3)
+
+
+def test_cg_sell_f64():
+    """Native fp64: the solve reaches a tolerance f32 cannot."""
+    _cg_sell("float64", 1e-12, 1e-9)
+
+
+def test_cg_sell_rejects_non_square_and_unknown():
+    import jax.numpy as jnp
+
+    from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
+    from sparsematrixvectormultiplication_tpu.models.synthetic import (
+        random_general,
+    )
+    from sparsematrixvectormultiplication_tpu.ops.sell import device_put_sell
+    from sparsematrixvectormultiplication_tpu.solvers import cg_sell
+
+    rect = SellMatrix.from_coo(random_general(40, 30, 0.1, seed=1))
+    with pytest.raises(ValueError, match="square"):
+        cg_sell(device_put_sell(rect, jnp.float64), jnp.ones(40))
+    with pytest.raises(TypeError):
+        cg_sell(object(), jnp.ones(40))
 
 
 def test_cg_jacobi_preconditioner_converges_faster():
@@ -304,7 +328,7 @@ def test_gmres_restart_tradeoff_and_warm_start():
 
 
 def test_gmres_f32_tolerance():
-    """f32 path: converges to f32-level residual (the TPU perf dtype)."""
+    """f32 path: converges to f32-level residual."""
     import jax.numpy as jnp
 
     from sparsematrixvectormultiplication_tpu.solvers import gmres

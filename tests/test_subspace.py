@@ -6,12 +6,9 @@ import jax.numpy as jnp
 
 from sparsematrixvectormultiplication_tpu.formats.coo import COOMatrix
 from sparsematrixvectormultiplication_tpu.formats.csr import CSRMatrix
-from sparsematrixvectormultiplication_tpu.formats.sell import SellMatrix
-from sparsematrixvectormultiplication_tpu.ops.pallas_sell import (
-    device_put_sell,
-)
-from sparsematrixvectormultiplication_tpu.ops.pallas_sell_spmm import (
-    sell_spmm_pallas,
+from sparsematrixvectormultiplication_tpu.ops.xla import (
+    csr_spmm,
+    device_put_csr,
 )
 from sparsematrixvectormultiplication_tpu.solvers import subspace_iteration
 
@@ -40,12 +37,10 @@ def _gapped_sym(n, k):
 def test_subspace_matches_dense_eigvals():
     n, k = 512, 4
     csr = _gapped_sym(n, k)
-    sell = SellMatrix.from_csr(csr, layout="k-major")
-    assert getattr(sell, "row_perm", None) is None
-    d = device_put_sell(sell, dtype=jnp.float32, resident=False)
+    d = device_put_csr(csr, dtype=jnp.float32)
 
     def matmat(V):
-        return sell_spmm_pallas(d, V, interpret=True)[:n]
+        return csr_spmm(d.values, d.col_idx, d.row_ids, V, nrows=n)
 
     Q0 = jnp.asarray(
         np.random.default_rng(0).standard_normal((n, k)), jnp.float32)
